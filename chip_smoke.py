@@ -3,17 +3,32 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line (the kernels phase one per kernel, the
+prefill phase one per model):
 
 1. device  — the card's name, count and power limit (nvidia-smi).
 2. build   — nvcc builds every kernel under src/repro_torch/kernels/csrc for
-             sm_90a; prints each kernel's registers, shared memory and spills.
-3. kernels — each kernel against its plain PyTorch version on the card over
-             the reference's decode cases (f32 and bf16), a gemma2-style
-             window + softcap + ring case and the qwen2-0.5b serving shapes;
-             then kernel, plain and library (SDPA) times: device time from
-             CUDA-graph replay and time per eager call, with CUDA events.
-4. serve   — full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936,
+             sm_90a, one nvcc per source, all started together; prints each
+             kernel's registers, shared memory and spills.
+3. kernels — each kernel against its plain PyTorch version on the card, in
+             f32 and bf16: flash_decode over the reference's decode cases, a
+             gemma2-style window + softcap + ring case and the qwen2-0.5b
+             serving shapes; flash_attention over the reference's ATTN_CASES,
+             a gemma2-style window + softcap case, D=256 and the qwen2-0.5b
+             prefill shapes; ssd_scan over the reference's SSD_CASES and the
+             mamba2-130m prefill shapes. Then kernel, plain and library times
+             at the main paths' shapes: device time from CUDA-graph replay
+             and time per eager call, with CUDA events.
+4. prefill — full-width qwen2-0.5b and mamba2-130m (random weights from a
+             seed): make_prefill_step at (B, S) = (1, 2048) and (4, 512), then
+             16 greedy make_decode_step steps from the prefilled cache or
+             state; checks the launches (24 flash_attention per qwen2
+             prefill, 24 ssd_scan per mamba2 prefill, 24 flash_decode per
+             qwen2 decode step), the decode_matches_full_forward identity at
+             full width, and smoke-size prefill -> decode on the card against
+             the CPU; then prefill ms per shape and a torch.profiler
+             breakdown per model.
+5. serve   — full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936,
              random weights from a seed) served by a Clockwork Controller and
              one Worker over TorchBackend on a RealClock; checks answers and
              that every INFER went through the kernel (24 launches each);
@@ -29,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -61,6 +77,33 @@ N_REQUESTS, GAP_S, SLO_S = 30, 0.02, 5.0
 # INFERs per bucket in the dedicated sweep: enough for a p99 to be more than
 # the maximum
 SWEEP_REPS = 200
+
+# tests/test_kernels.py::ATTN_CASES (B, Sq, Skv, H, K, D, causal, window,
+# cap); then a gemma2-style local layer at its full heads (32 over 16 kv
+# heads, D=128: 114 KB of shared memory) with a window shorter than S and
+# softcap 50; then the largest head, D=256 (213 KB)
+ATTN_CASES = [
+    (2, 64, 64, 4, 2, 32, True, 0, 0.0),
+    (1, 100, 100, 2, 2, 16, True, 24, 50.0),
+    (2, 48, 48, 4, 1, 64, False, 0, 0.0),
+    (1, 96, 96, 8, 8, 128, True, 0, 30.0),
+    (1, 33, 33, 2, 1, 16, True, 7, 0.0),
+    (1, 512, 512, 32, 16, 128, True, 128, 50.0),
+    (1, 130, 130, 4, 2, 256, True, 0, 0.0),
+]
+# tests/test_kernels.py::SSD_CASES (B, L, H, P, N, chunk); L=50 is ragged
+SSD_CASES = [(2, 64, 3, 16, 8, 16), (1, 50, 2, 8, 16, 16),
+             (1, 128, 4, 32, 16, 32)]
+# the reference's SSD tolerance (the oracle rounds x*dt and the weighted
+# scores to bf16; the kernel keeps them in f32)
+SSD_TOL = {"float32": 3e-4, "bfloat16": 4e-2}
+# the prefill path: (B, S) for qwen2-0.5b (bf16, H=14, K=2, D=64, causal)
+# and mamba2-130m (bf16, H=24, P=64, N=128, chunk 256), each followed by
+# N_DECODE greedy decode steps
+PREFILL_SHAPES = [(1, 2048), (4, 512)]
+PREFILL_ARCHS = ("qwen2-0.5b", "mamba2-130m")
+N_DECODE = 16
+PREFILL_REPS = 5
 
 
 def emit(obj):
@@ -137,7 +180,9 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = {name: build.build(name) for name in build.sources()}
+    names = build.sources()
+    with ThreadPoolExecutor(len(names)) as pool:       # one nvcc per source
+        libs = dict(zip(names, pool.map(build.build, names)))
     secs = time.perf_counter() - t0
     ptxas = {name: [l.strip() for l in build.build_log(name).splitlines()
                     if "registers" in l or "spill" in l or "Compiling" in l]
@@ -175,12 +220,32 @@ def _check_case(case, dtype):
     return err
 
 
+def _bound(bytes_moved, ops):
+    """The least time the card could take: bytes at 3.35 TB/s or operations
+    at the bf16 tensor-core peak, whichever is longer, and which it is."""
+    from repro_torch.utils import H100
+    t_bytes = bytes_moved / H100.hbm_bandwidth * 1e3
+    t_ops = ops / H100.peak_bf16_flops * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": bytes_moved, "operations": ops}
+
+
+def _timed(kernel, plain, library):
+    """Device ms (CUDA-graph replay) and eager ms of each callable; library
+    may be None."""
+    times = {}
+    for name, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        times[name + "ms"] = graph_ms(fn) if fn else None
+        times[name + "eager_ms"] = cuda_ms(fn, 200) if fn else None
+    return times
+
+
 def _time_shape(B, S, cur):
     """Kernel, plain and SDPA times at one qwen2-0.5b serving shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
-    from repro_torch.utils import H100
     K, G, D = 2, 7, 64
     H = K * G
     case = (B, S, H, K, D, 0, False, 0.0, cur)
@@ -194,10 +259,7 @@ def _time_shape(B, S, cur):
     mask = ((kpos >= 0) & (kpos <= cur))[None, None, None, :]
     library = lambda: F.scaled_dot_product_attention(                # noqa: E731
         qs, ks, vs, attn_mask=mask)
-    times = {}
-    for name, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        times[name + "ms"] = graph_ms(fn)
-        times[name + "eager_ms"] = cuda_ms(fn, 200)
+    times = _timed(kernel, plain, library)
     lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)[:, :, 0]
     lib_err = (lib_out.float() - fd.flash_decode(q, k, v, kpos, cur).float()
                ).abs().max().item()
@@ -208,16 +270,128 @@ def _time_shape(B, S, cur):
                    + 2 * B * n_keys * K * D * 2        # K and V rows
                    + S * 4)                            # kpos
     ops = 4 * B * H * n_keys * D                       # QK^T and PV
-    t_bytes = bytes_moved / H100.hbm_bandwidth * 1e3
-    t_ops = ops / H100.peak_bf16_flops * 1e3
     return {"B": B, "S": S, "cur": cur, "K": K, "G": G, "D": D,
             "dtype": "bfloat16", **times, "library_max_abs_err": lib_err,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": bytes_moved, "operations": ops}
+            **_bound(bytes_moved, ops)}
+
+
+def _allclose_err(got, want, tol):
+    """(max abs error, whether |got - want| <= tol + tol*|want| everywhere:
+    the reference tests' rtol = atol = tol), after checking got is finite."""
+    import torch
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    ok = (bool(torch.isfinite(got).all().item())
+          and bool((diff <= tol + tol * want.abs()).all().item()))
+    return diff.max().item(), ok
+
+
+def _attn_tensors(case, dtype, seed=0):
+    import torch
+    B, Sq, Skv, H, K, D = case[:6]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D)))
+
+
+def _check_attention(case, dtype):
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    causal, window, cap = case[6:]
+    q, k, v = _attn_tensors(case, getattr(torch, dtype))
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    cap=cap)
+    err, ok = _allclose_err(got, want, TOL[dtype])
+    if not ok:
+        die("kernels", f"flash_attention {case} {dtype}: max abs err {err}, "
+                       f"outside rtol = atol = {TOL[dtype]} (or non-finite)")
+    return err
+
+
+def _ssd_tensors(case, dtype, seed=0):
+    """The reference tests' draws: x, b, c ~ N(0, 0.25), dt ~ U(0.01, 0.2),
+    a ~ -U(0.5, 2)."""
+    import torch
+    B, L, H, P, N = case[:5]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    x = (torch.randn((B, L, H, P), generator=g, device=dev) * 0.5).to(dtype)
+    dt = torch.rand((B, L, H), generator=g, device=dev) * 0.19 + 0.01
+    a = -(torch.rand((H,), generator=g, device=dev) * 1.5 + 0.5)
+    b = (torch.randn((B, L, N), generator=g, device=dev) * 0.5).to(dtype)
+    c = (torch.randn((B, L, N), generator=g, device=dev) * 0.5).to(dtype)
+    return x, dt, a, b, c
+
+
+def _check_ssd(case, dtype):
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    args = _ssd_tensors(case, getattr(torch, dtype))
+    y, state = ss.ssd_scan(*args, chunk=case[5])
+    torch.cuda.synchronize()
+    want_y, want_s = ss.ssd_scan_plain(*args, chunk=case[5])
+    tol = SSD_TOL[dtype]
+    err_y, ok_y = _allclose_err(y, want_y, tol)
+    err_s, ok_s = _allclose_err(state, want_s, tol)
+    if not (ok_y and ok_s):
+        die("kernels", f"ssd_scan {case} {dtype}: max abs err y {err_y}, "
+                       f"state {err_s}, outside rtol = atol = {tol}")
+    return max(err_y, err_s)
+
+
+def _time_attention(B, S):
+    """Kernel, plain and SDPA times at one qwen2-0.5b prefill shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    H, K, D = 14, 2, 64
+    q, k, v = _attn_tensors((B, S, S, H, K, D), torch.bfloat16, seed=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # (B, heads, S, D)
+    # yardstick only: one library call computing the same function
+    library = lambda: F.scaled_dot_product_attention(        # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    times = _timed(lambda: fa.flash_attention(q, k, v),
+                   lambda: fa.flash_attention_plain(q, k, v), library)
+    lib_err = (library().transpose(1, 2).float()
+               - fa.flash_attention(q, k, v).float()).abs().max().item()
+    pairs = S * (S + 1) // 2                 # (q, k) pairs under the mask
+    bytes_moved = 2 * (B * S * H * D) * 2 + 2 * (B * S * K * D) * 2
+    ops = 4 * B * H * D * pairs              # QK^T and PV
+    return {"B": B, "S": S, "H": H, "K": K, "D": D, "causal": True,
+            "dtype": "bfloat16", **times, "library_max_abs_err": lib_err,
+            **_bound(bytes_moved, ops)}
+
+
+def _time_ssd(B, L):
+    """Kernel and plain times at one mamba2-130m prefill shape. No single
+    PyTorch call computes the SSD scan, so there is no library time."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    H, P, N, Q = 24, 64, 128, 256
+    args = _ssd_tensors((B, L, H, P, N), torch.bfloat16, seed=1)
+    times = _timed(lambda: ss.ssd_scan(*args, chunk=Q),
+                   lambda: ss.ssd_scan_plain(*args, chunk=Q), None)
+    # least work: C B^T does not depend on the head and is needed only on
+    # and below the diagonal of each chunk; per head the weighted scores
+    # times x*dt over the same pairs, the chunk states and the inter-chunk
+    # term (2*L*P*N each)
+    full, rest = divmod(L, Q)
+    pairs = full * Q * (Q + 1) // 2 + rest * (rest + 1) // 2
+    ops = B * (2 * N * pairs + H * (2 * P * pairs + 4 * L * P * N))
+    bytes_moved = (2 * (B * L * H * P) * 2             # x in, y out
+                   + B * L * H * 4 + H * 4             # dt, a
+                   + 2 * (B * L * N) * 2               # b, c
+                   + B * H * P * N * 4)                # final state
+    return {"B": B, "L": L, "H": H, "P": P, "N": N, "chunk": Q,
+            "dtype": "bfloat16", **times,
+            "library_note": "no single PyTorch call computes the SSD scan",
+            **_bound(bytes_moved, ops)}
 
 
 def phase_kernels():
+    res = {}
     errs = []
     for case in DECODE_CASES:
         for dtype in ("float32", "bfloat16"):
@@ -227,11 +401,35 @@ def phase_kernels():
         serve_errs.append(_check_case((B, S, 14, 2, 64, 0, False, 0.0, cur),
                                       "bfloat16"))
     shapes = [_time_shape(B, S, cur) for B, S, cur in SERVE_SHAPES]
-    res = {"phase": "kernels", "ok": True, "kernel": "flash_decode",
-           "cases_checked": len(errs) + len(serve_errs),
-           "max_abs_err_cases": max(errs), "max_abs_err_serving": max(serve_errs),
-           "tolerance": TOL, "shapes": shapes}
-    emit(res)
+    res["flash_decode"] = {
+        "phase": "kernels", "ok": True, "kernel": "flash_decode",
+        "cases_checked": len(errs) + len(serve_errs),
+        "max_abs_err_cases": max(errs), "max_abs_err_serving": max(serve_errs),
+        "tolerance": TOL, "shapes": shapes}
+
+    errs = [_check_attention(c, d) for c in ATTN_CASES
+            for d in ("float32", "bfloat16")]
+    path_errs = [_check_attention((B, S, S, 14, 2, 64, True, 0, 0.0),
+                                  "bfloat16") for B, S in PREFILL_SHAPES]
+    res["flash_attention"] = {
+        "phase": "kernels", "ok": True, "kernel": "flash_attention",
+        "cases_checked": len(errs) + len(path_errs),
+        "max_abs_err_cases": max(errs), "max_abs_err_path": max(path_errs),
+        "tolerance": TOL,
+        "shapes": [_time_attention(B, S) for B, S in PREFILL_SHAPES]}
+
+    errs = [_check_ssd(c, d) for c in SSD_CASES
+            for d in ("float32", "bfloat16")]
+    path_errs = [_check_ssd((B, L, 24, 64, 128, 256), "bfloat16")
+                 for B, L in PREFILL_SHAPES]
+    res["ssd_scan"] = {
+        "phase": "kernels", "ok": True, "kernel": "ssd_scan",
+        "cases_checked": len(errs) + len(path_errs),
+        "max_abs_err_cases": max(errs), "max_abs_err_path": max(path_errs),
+        "tolerance": SSD_TOL,
+        "shapes": [_time_ssd(B, L) for B, L in PREFILL_SHAPES]}
+    for r in res.values():
+        emit(r)
     return res
 
 
@@ -317,25 +515,263 @@ def _check_against_cpu():
     return res
 
 
-def _profile_infer(jm, b):
-    """One INFER of bucket ``b`` under torch.profiler: its wall time, the
-    device time its kernels sum to, and how many kernels it launched."""
+def _wall_s(fn):
+    """Host seconds for ``fn()``, from a synchronised card to a synchronised
+    card."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _profile(run):
+    """One ``run()`` (which returns its wall seconds) under torch.profiler:
+    its wall time, the device time its kernels sum to, the idle share, how
+    many kernels it launched and the eight that took the most time."""
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = jm.run(b)
+        wall = run()
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0)) for e in dev)
     top = sorted(dev, key=lambda e: -getattr(e, "self_device_time_total", 0))[:8]
-    return {"bucket": b, "wall_ms": wall * 1e3,
+    return {"wall_ms": wall * 1e3,
             "device_busy_ms": busy_us / 1e3 if dev else None,
             "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3) if dev else None,
             "kernels": sum(e.count for e in dev),
             "top_kernels": [{"name": e.key[:60], "count": e.count,
                              "ms": getattr(e, "self_device_time_total", 0) / 1e3}
                             for e in top]}
+
+
+def _profile_infer(jm, b):
+    """One INFER of bucket ``b`` under torch.profiler (see _profile)."""
+    return {"bucket": b, **_profile(lambda: jm.run(b))}
+
+
+def _counters():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd_scan as ss
+    return {"flash_attention": fa.flash_attention,
+            "flash_decode": fd.flash_decode, "ssd_scan": ss.ssd_scan}
+
+
+def _zero_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _prefill_smoke_against_cpu(arch):
+    """Smoke-size prefill (B=2, S=24, 32 slots) then two decode steps, on
+    the card (kernels) and on the CPU (plain versions), same weights and
+    tokens. The logits of each step are held to tests/test_torch_prefill.py's
+    bounds, with the CPU run as the reference: 1e-4 x max(|ref|, 1) in f32;
+    in bf16 2e-2 x max(|ref|, 1) plus twice the CPU run's own bf16-vs-f32
+    error."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils import tree_map
+    cfg = get_smoke_config(arch)
+    bundle = get_bundle(cfg)
+    gen = torch.Generator().manual_seed(2)
+    params0 = bundle.init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 26), generator=gen)
+    V, S = cfg.vocab_size, 24
+
+    def run(dev, dtype):
+        p = tree_map(lambda t: t.to(dev, copy=True).to(dtype)
+                     if t.dtype == torch.bfloat16 else t.to(dev, copy=True),
+                     params0)
+        with torch.no_grad():
+            logits, cache = bundle.prefill(p, {"tokens": toks[:, :S].to(dev)},
+                                           cache_len=32)
+            steps = [logits]
+            for i in range(2):
+                logits, cache = bundle.decode(
+                    p, cache, toks[:, S + i:S + i + 1].to(dev), S + i)
+                steps.append(logits)
+        return [t[..., :V].float().cpu() for t in steps]
+
+    cpu32 = run("cpu", torch.float32)
+    res = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        ref = cpu32 if dtype == torch.float32 else run("cpu", dtype)
+        got = run("cuda", dtype)
+        errs = []
+        for step, (g, r, r32) in enumerate(zip(got, ref, cpu32)):
+            err = (g - r).abs().max().item()
+            bound = tol * max(r.abs().max().item(), 1.0)
+            if dtype == torch.bfloat16:
+                bound += 2 * (r - r32).abs().max().item()
+            if not err <= bound:
+                die("prefill", f"{arch} smoke {dtype} step {step} on the "
+                               f"card vs CPU: logits {err} > {bound}")
+            errs.append({"err": err, "bound": bound})
+        res[str(dtype).split(".")[-1]] = errs
+    return res
+
+
+# projections laid out (d_model, heads, head_dim): the reference's init
+# takes shape[-2], the head count, as their fan-in
+HEAD_PROJ = ("w_q", "w_k", "w_v", "w_x", "w_z")
+
+
+def _conditioned(params, cfg):
+    """The same random weights with the head projections rescaled to
+    1/sqrt(d_model). Under the reference's init rule their std is
+    1/sqrt(heads): at qwen2-0.5b's full width q and k reach a std of about
+    8 and 21, the scores about 170, the softmax is all but one-hot, and
+    rounding in the last bit of any sum decides which key wins, so two
+    correct computations of the same logits in another order drift apart
+    layer by layer."""
+    d = cfg.d_model
+
+    def block(p):
+        p = dict(p)
+        for mixer in ("attn", "ssm"):
+            if mixer in p:
+                p[mixer] = {k: (v.float() * (v.shape[-2] / d) ** 0.5).to(
+                    v.dtype) if k in HEAD_PROJ else v
+                    for k, v in p[mixer].items()}
+        return p
+
+    return {**params, "stack": tuple(block(p) for p in params["stack"]),
+            "leftover": tuple(block(p) for p in params["leftover"])}
+
+
+def _identity_errors(bundle, params, B, S):
+    """(prefill vs train, decode vs train) relative errors of
+    tests/test_models_smoke.py::test_decode_matches_full_forward: prefill(S)
+    + decode(S) against the train-mode forward over S+1 tokens."""
+    import torch
+    cfg = bundle.cfg
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g).cuda()
+    V = cfg.vocab_size
+    with torch.no_grad():
+        full = bundle.train_logits(params, {"tokens": toks})
+        fref, ref = full[:, S - 1, :V], full[:, S, :V]
+        del full
+        plogits, cache = bundle.prefill(params, {"tokens": toks[:, :S]},
+                                        cache_len=S + 8)
+        dlogits, _ = bundle.decode(params, cache, toks[:, S:S + 1], S)
+    pref, got = plogits[:, -1, :V], dlogits[:, 0, :V]
+    if not all(torch.isfinite(t).all().item() for t in (pref, got)):
+        die("prefill", f"{cfg.name}: non-finite prefill or decode logits")
+    rel = lambda a, b: ((a - b).abs().max()                      # noqa: E731
+                        / b.abs().max().clamp(min=1.0)).item()
+    return rel(pref, fref), rel(got, ref)
+
+
+def _full_forward_identity(bundle, params, B, S):
+    """The identity at full width, held within the test's bounds (prefill
+    within 1e-3 relative, decode within 0.06) on the conditioned weights;
+    on the reference-init weights it is reported, not held (see
+    _conditioned)."""
+    rel_p, rel_d = _identity_errors(bundle, _conditioned(params, bundle.cfg),
+                                    B, S)
+    if not (rel_p < 1e-3 and rel_d < 0.06):
+        die("prefill", f"{bundle.cfg.name} full width B={B} S={S}: prefill "
+                       f"vs train {rel_p} (< 1e-3), decode vs train {rel_d} "
+                       f"(< 0.06)")
+    ref_p, ref_d = _identity_errors(bundle, params, B, S)
+    return {"B": B, "S": S, "weights": "head projections at 1/sqrt(d_model)",
+            "prefill_rel_err": rel_p, "prefill_bound": 1e-3,
+            "decode_rel_err": rel_d, "decode_bound": 0.06,
+            "reference_init_not_held": {"prefill_rel_err": ref_p,
+                                        "decode_rel_err": ref_d}}
+
+
+def _prefill_model(arch):
+    """The prefill -> decode path of one full-width model: its launches,
+    checks, prefill times and profile."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils import tree_map
+    cfg = get_config(arch)
+    bundle = get_bundle(cfg)
+    t0 = time.perf_counter()
+    params = tree_map(lambda t: t.cuda(),
+                      bundle.init(torch.Generator().manual_seed(0)))
+    t_init = time.perf_counter() - t0
+    L = cfg.num_layers
+    pattern, n_groups, leftover = cfg.pattern_split()
+    kinds = pattern * n_groups + leftover
+    attn_layers = sum(k in ("attn", "local") for k in kinds)
+    ssm_layers = kinds.count("ssm")
+    decode = make_decode_step(cfg)
+    g = torch.Generator().manual_seed(1)
+    batches = {(B, S): {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                                generator=g)}
+               for B, S in PREFILL_SHAPES}
+    steps = {bs: make_prefill_step(cfg, cache_len=bs[1] + N_DECODE)
+             for bs in PREFILL_SHAPES}
+
+    _zero_counts()                          # the main path's run starts
+    generated = {}
+    for (B, S), batch in batches.items():
+        tok, cache = steps[(B, S)](params, batch)
+        out = [tok]
+        for i in range(N_DECODE):
+            tok, cache = decode(params, cache, tok, S + i)
+            out.append(tok)
+        generated[(B, S)] = torch.cat(out, dim=1).cpu()
+        del cache
+    torch.cuda.synchronize()
+    launches = _read_counts()               # ... and ends
+    n = len(PREFILL_SHAPES)
+    want = {"flash_attention": attn_layers * n,
+            "ssd_scan": ssm_layers * n,
+            "flash_decode": attn_layers * N_DECODE * n}
+    for (B, S), toks in generated.items():
+        if toks.shape != (B, N_DECODE + 1) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            die("prefill", f"{arch} B={B} S={S}: bad greedy tokens "
+                           f"{toks.shape}")
+    if launches != want:
+        die("prefill", f"{arch}: launches {launches}, expected {want}")
+
+    times = {}
+    for bs, batch in batches.items():
+        secs = [_wall_s(lambda: steps[bs](params, batch))
+                for _ in range(PREFILL_REPS)]
+        times[f"{bs[0]}x{bs[1]}"] = {
+            "n": len(secs), "p50_ms": float(np.median(secs)) * 1e3,
+            "min_ms": min(secs) * 1e3, "max_ms": max(secs) * 1e3}
+    B, S = PREFILL_SHAPES[0]
+    res = {"phase": "prefill", "ok": True, "model": arch, "layers": L,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "init_s": t_init,
+           "shapes": [list(bs) for bs in PREFILL_SHAPES],
+           "decode_steps": N_DECODE, "launches": launches,
+           "launches_expected": want,
+           "launches_per_prefill": {"flash_attention": attn_layers,
+                                    "ssd_scan": ssm_layers},
+           "launches_per_decode_step": {"flash_decode": attn_layers},
+           "prefill_ms": times,
+           "identity": _full_forward_identity(bundle, params, B, S),
+           "smoke_card_vs_cpu": _prefill_smoke_against_cpu(arch),
+           "profile": _profile(lambda: _wall_s(
+               lambda: steps[(B, S)](params, batches[(B, S)])))}
+    emit(res)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_prefill():
+    return {arch: _prefill_model(arch) for arch in PREFILL_ARCHS}
 
 
 def phase_serve():
@@ -441,28 +877,52 @@ def main():
     dev = phase_device()
     phase_build()
     kern = phase_kernels()
+    prefill = phase_prefill()
     serve = phase_serve()
-    # the kernel's times at the shape the main path's run launched it at
-    # most: its most served bucket, the engine's ctx
+    # the decode kernel's times at the shape its main path (serving)
+    # launched it at most: its most served bucket, the engine's ctx
     served = serve["exec_by_bucket"]
     main_b = max(served, key=lambda b: served[b]["n"])
-    main_shape = next(s for s in kern["shapes"]
-                      if (s["B"], s["S"]) == (int(main_b), CTX))
-    emit({"kernels": [{
+    fd_shape = next(s for s in kern["flash_decode"]["shapes"]
+                    if (s["B"], s["S"]) == (int(main_b), CTX))
+    fd_line = {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode.py:67",
         "launches": serve["flash_decode_launches"],
         "launches_per_infer": serve["launches_per_infer"],
-        "max_abs_err": kern["max_abs_err_serving"],
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-        "eager_ms": main_shape["eager_ms"],
-        "plain_eager_ms": main_shape["plain_eager_ms"],
-        "library_eager_ms": main_shape["library_eager_ms"],
-        "shape": {k: main_shape[k] for k in ("B", "S", "cur", "K", "G", "D",
-                                             "dtype")}}]})
+        "launches_prefill_path": prefill["qwen2-0.5b"]["launches"][
+            "flash_decode"],
+        "max_abs_err": kern["flash_decode"]["max_abs_err_serving"],
+        **{k: fd_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "eager_ms",
+                                    "plain_eager_ms", "library_eager_ms")},
+        "shape": {k: fd_shape[k] for k in ("B", "S", "cur", "K", "G", "D",
+                                           "dtype")}}
+    # the prefill kernels' times at the path's first shape, B=1, S=2048
+    lines = [fd_line]
+    for name, arch, src, replaces, keys in (
+            ("flash_attention", "qwen2-0.5b", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:83",
+             ("B", "S", "H", "K", "D", "causal", "dtype")),
+            ("ssd_scan", "mamba2-130m", "ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:72",
+             ("B", "L", "H", "P", "N", "chunk", "dtype"))):
+        shape = kern[name]["shapes"][0]
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces,
+            "launches": prefill[arch]["launches"][name],
+            "launches_per_prefill": prefill[arch]["launches_per_prefill"][name],
+            "max_abs_err": kern[name]["max_abs_err_path"],
+            **{k: shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "eager_ms",
+                                     "plain_eager_ms", "library_eager_ms")},
+            **({"library_note": shape["library_note"]}
+               if "library_note" in shape else {}),
+            "shape": {k: shape[k] for k in keys}})
+    emit({"kernels": lines})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

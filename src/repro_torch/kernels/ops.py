@@ -1,11 +1,21 @@
 """Model-layout wrappers over the kernels (port of ``repro.kernels.ops``).
 
-They take the model's tensors (B, S, H/K, D) and hand the kernel views,
-never transposed copies: the kernel reads the cache through its strides.
+They take the model's tensors (B, S, H/K, D) and hand the kernels views,
+never transposed or GQA-repeated copies: the kernels read them through
+their strides.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import ssd_scan as _ssd
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    cap: float = 0.0):
+    """q (B,Sq,H,D); k,v (B,Skv,K,D) with H = K*G -> (B,Sq,H,D)."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               cap=cap)
 
 
 def flash_decode(q, k, v, kpos, cur_index, *, window: int = 0,
@@ -14,3 +24,10 @@ def flash_decode(q, k, v, kpos, cur_index, *, window: int = 0,
     out = _fd.flash_decode(q[:, 0], k, v, kpos, cur_index, window=window,
                            cap=cap)
     return out[:, None]
+
+
+def ssd(x, dt, a, bmat, cmat, *, chunk: int = 128):
+    """Model layout: x (B,L,H,P); dt (B,L,H); a (H,); b/c (B,L,N).
+
+    Returns (y (B,L,H,P), state (B,H,P,N))."""
+    return _ssd.ssd_scan(x, dt, a, bmat, cmat, chunk=chunk)

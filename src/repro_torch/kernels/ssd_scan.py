@@ -1,0 +1,171 @@
+"""Mamba2 SSD chunk scan.
+
+Port of the Pallas TPU kernel ``repro/kernels/ssd_scan.py::ssd_scan_bh``.
+On a CUDA tensor :func:`ssd_scan` launches the hand-written kernels in
+``csrc/ssd_scan.cu`` (chunk states, a short pass over the chunks, then the
+outputs; see the source); on a CPU tensor it runs :func:`ssd_scan_plain`,
+the port of ``repro/models/ssm.py::ssd_reference``. Any other device
+raises.
+
+Layout (the model's, read through strides, no copy): x (B, L, H, P);
+dt (B, L, H) f32; a (H,) f32 (negative); b, c (B, L, N), shared by all
+heads. Returns y (B, L, H, P) in x's dtype and the final state
+(B, H, P, N) in f32.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+from repro_torch.utils import cdiv
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ssd_scan_plain(x, dt, a, b, c, *, chunk: int):
+    """Chunked SSD (port of ``ssd_reference``): x·dt and the decay-weighted
+    scores are rounded to x's dtype before their products, as the reference
+    rounds them; chunk states and the inter-chunk term in f32."""
+    Bt, L, H, Pd = x.shape
+    N = b.shape[-1]
+    Q = min(chunk, L)
+    L0 = L
+    if L % Q:        # pad tail: dt=0 => decay 1, zero input; state unaffected
+        pad = Q - L % Q
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+        L += pad
+    nc = L // Q
+
+    xdt = (x.float() * dt[..., None]).to(x.dtype)
+    dA = dt * a                                       # (Bt,L,H) log-decay
+    cum = torch.cumsum(dA.reshape(Bt, nc, Q, H), dim=2)
+    x_c = xdt.reshape(Bt, nc, Q, H, Pd)
+    b_c = b.reshape(Bt, nc, Q, N)
+    c_c = c.reshape(Bt, nc, Q, N)
+
+    # intra-chunk
+    scores = torch.einsum("bcqn,bckn->bcqk", c_c, b_c).float()
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (Bt,nc,Q,Q,H)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    lmat = torch.where(tri[None, None, :, :, None], torch.exp(rel), 0.0)
+    w_full = scores[..., None] * lmat
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", w_full.to(x.dtype), x_c)
+
+    # chunk summary states
+    to_end = torch.exp(cum[:, :, -1:, :] - cum)       # (Bt,nc,Q,H)
+    s_chunk = torch.einsum("bcqh,bcqn,bcqhp->bchpn", to_end, b_c.float(),
+                           x_c.float())               # (Bt,nc,H,P,N)
+
+    # inter-chunk state recurrence
+    t_total = torch.exp(cum[:, :, -1, :])             # (Bt,nc,H)
+    s = torch.zeros((Bt, H, Pd, N), dtype=torch.float32, device=x.device)
+    s_ins = []
+    for ci in range(nc):
+        s_ins.append(s)
+        s = s * t_total[:, ci, :, None, None] + s_chunk[:, ci]
+    s_in = torch.stack(s_ins, dim=1)                  # (Bt,nc,H,P,N) incoming
+
+    y_inter = torch.einsum("bcqn,bcqh,bchpn->bcqhp", c_c.float(),
+                           torch.exp(cum), s_in)
+    y = (y_intra.float() + y_inter).reshape(Bt, L, H, Pd)
+    return y[:, :L0].to(x.dtype), s
+
+
+def _kernel():
+    """(launch function, (max P, max N, max chunk)) of the built library."""
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_scan_launch
+    if fn.argtypes is None:
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [I, P, L, L, L, P, L, L, L, P, P, L, L, P, L, L,
+                       P, P, P, P, I, I, I, I, I, I, P]
+        fn.restype = I
+        for name in ("ssd_scan_max_p", "ssd_scan_max_n", "ssd_scan_max_q"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = I
+    return fn, (lib.ssd_scan_max_p(), lib.ssd_scan_max_n(),
+                lib.ssd_scan_max_q())
+
+
+def _check(x, dt, a, b, c, Q, limits):
+    dev = x.device
+    if any(t.device != dev for t in (dt, a, b, c)):
+        raise ValueError("ssd_scan: x, dt, a, b and c must share a device")
+    if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"ssd_scan: x/b/c must all be float32 or bfloat16, "
+                        f"got {x.dtype}/{b.dtype}/{c.dtype}")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: dt and a must be float32, got "
+                        f"{dt.dtype}/{a.dtype}")
+    if x.dim() != 4 or b.dim() != 3 or c.shape != b.shape:
+        raise ValueError(f"ssd_scan: want x (B,L,H,P), b/c (B,L,N); got "
+                         f"{tuple(x.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}")
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    if dt.shape != (B, L, H) or a.shape != (H,) or b.shape[:2] != (B, L):
+        raise ValueError(f"ssd_scan: dt {tuple(dt.shape)}, a "
+                         f"{tuple(a.shape)}, b {tuple(b.shape)} do not fit "
+                         f"x {tuple(x.shape)}")
+    max_p, max_n, max_q = limits
+    if P > max_p or N > max_n or Q > max_q:
+        raise ValueError(f"ssd_scan: P={P} (max {max_p}), N={N} (max "
+                         f"{max_n}) or chunk {Q} (max {max_q}) is not "
+                         f"supported")
+    if x.stride(-1) != 1 or b.stride(-1) != 1 or c.stride(-1) != 1:
+        raise ValueError("ssd_scan: x's, b's and c's last dims must be "
+                         "contiguous")
+    if not a.is_contiguous():
+        raise ValueError("ssd_scan: a must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, a, b, c)):
+        raise NotImplementedError(
+            "ssd_scan: the CUDA kernel has no backward yet (it comes with "
+            "the training port); run under torch.no_grad()")
+
+
+def ssd_scan(x, dt, a, b, c, *, chunk: int):
+    """x (B,L,H,P); dt (B,L,H) f32; a (H,) f32; b, c (B,L,N) ->
+    (y (B,L,H,P) in x's dtype, state (B,H,P,N) f32).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise. ``ssd_scan.launches`` counts kernel launches (one per call: the
+    three passes of the source)."""
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    launch, limits = _kernel()
+    B, L, H, P = x.shape
+    N = b.shape[-1]
+    Q = min(chunk, L)
+    _check(x, dt, a, b, c, Q, limits)
+    nc = cdiv(L, Q)
+    dev = x.device
+    y = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
+    chunk_state = torch.empty((B * H * nc * P * N,), dtype=torch.float32,
+                              device=dev)
+    tot = torch.empty((B * H * nc,), dtype=torch.float32, device=dev)
+    rc = launch(
+        _DTYPES[x.dtype],
+        x.data_ptr(), x.stride(0), x.stride(1), x.stride(2),
+        dt.data_ptr(), dt.stride(0), dt.stride(1), dt.stride(2),
+        a.data_ptr(), b.data_ptr(), b.stride(0), b.stride(1),
+        c.data_ptr(), c.stride(0), c.stride(1),
+        y.data_ptr(), state.data_ptr(), chunk_state.data_ptr(),
+        tot.data_ptr(), B, L, H, P, N, Q,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan kernel launch failed: cudaError {rc}")
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0

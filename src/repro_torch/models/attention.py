@@ -1,14 +1,18 @@
-"""GQA attention, decode half (port of ``repro.models.attention``).
+"""GQA attention: full-sequence (prefill / train forward) and cached decode
+(port of ``repro.models.attention``).
 
-One token against a KV cache. The score/softmax/PV block runs through
-``kernels.ops.flash_decode``: the hand-written CUDA kernel on the card, its
-plain PyTorch version on the CPU. Prefill (``attend_full`` through
-``flash_attention_bhsd``) and cross-attention are not ported yet (ROADMAP
-queue 1, item 5).
+``attend_full`` runs its score/softmax/PV block through
+``kernels.ops.flash_attention`` and ``attend_decode`` through
+``kernels.ops.flash_decode``: the hand-written CUDA kernels on the card,
+their plain PyTorch versions on the CPU. The reference's mesh logic
+(``constrain``, ``_should_expand_kv``, ``_context_segments``) reduces to the
+single-device case and is dropped. Cross-attention (encoder-decoder models)
+is not ported yet.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -31,6 +35,27 @@ def attn_spec(cfg: ModelConfig):
     return s
 
 
+def _project_qkv(p, x, positions, theta: float):
+    q = torch.einsum("bsd,dhx->bshx", x, p["w_q"])
+    k = torch.einsum("bsd,dkx->bskx", x, p["w_k"])
+    v = torch.einsum("bsd,dkx->bskx", x, p["w_v"])
+    if "b_q" in p:
+        q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
+    return rope(q, positions, theta), rope(k, positions, theta), v
+
+
+def attend_full(p, cfg: ModelConfig, x, *, kind: str, positions,
+                causal: bool = True):
+    """Train / prefill attention. x (B,S,d); positions (B,S). Returns
+    (y, (k, v)): k/v post-RoPE, unexpanded, for cache construction."""
+    q, k, v = _project_qkv(p, x, positions, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=causal,
+                              window=cfg.window if kind == "local" else 0,
+                              cap=cfg.attn_softcap)
+    y = torch.einsum("bshx,hxd->bsd", out, p["w_o"])
+    return y, (k, v)
+
+
 def _ring_window(cfg: ModelConfig, kind: str) -> int:
     return cfg.window if (kind == "local" and cfg.sliding_kv and cfg.window) else 0
 
@@ -50,6 +75,21 @@ def cache_axes():
     return ("batch", "seq_kv", "kv_heads", "head_dim")
 
 
+def prefill_into_cache(cfg: ModelConfig, kind: str, k, v, max_len: int):
+    """Build a decode cache from prefill K/V (ring-packed for local layers).
+    The tensors are owned and contiguous: decode writes into them in
+    place."""
+    B, S, K, D = k.shape
+    W = _ring_window(cfg, kind)
+    cap = min(max_len, W) if W else max_len
+    if S > cap:                       # keep last `cap`, ring-packed
+        shift = (S - cap) % cap
+        return {"k": torch.roll(k[:, S - cap:], shift, dims=1),
+                "v": torch.roll(v[:, S - cap:], shift, dims=1)}
+    pad = (0, 0, 0, 0, 0, cap - S)    # S == cap pads nothing, but copies
+    return {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+
+
 def attend_decode(p, cfg: ModelConfig, x, cache, cur_index: int, *,
                   kind: str, cross: bool = False):
     """One-token decode. x (B,1,d). Returns (y, cache).
@@ -58,7 +98,8 @@ def attend_decode(p, cfg: ModelConfig, x, cache, cur_index: int, *,
     written into ``cache`` in place and the same dict is returned."""
     if cross:
         raise NotImplementedError(
-            "cross-attention decode: ROADMAP queue 1, item 12")
+            "cross-attention decode (encoder-decoder models) is not ported "
+            "yet: ROADMAP, modules to port")
     B = x.shape[0]
     cur = int(cur_index)
     pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)

@@ -1,6 +1,7 @@
 """Model bundle (port of ``repro.models.registry``): one object per
-architecture exposing the spec, initialisation, decode step and the
-decode cache. Only the dense decoder family is ported; the others raise
+architecture exposing the spec, initialisation, the three forward modes
+(train logits, prefill, decode) and the decode cache, for plain token
+input. The dense and Mamba2 families are ported; the others raise
 NotImplementedError when their spec or cache is built."""
 from __future__ import annotations
 
@@ -16,8 +17,8 @@ class Bundle:
     def __init__(self, cfg: ModelConfig):
         if cfg.is_encdec or cfg.modality is not None:
             raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder and VLM input are ROADMAP "
-                "queue 1, item 12")
+                f"{cfg.name}: encoder-decoder and VLM input are not ported "
+                "yet (ROADMAP, modules to port)")
         self.cfg = cfg
 
     def spec(self):
@@ -25,6 +26,15 @@ class Bundle:
 
     def init(self, gen: torch.Generator):
         return pspec.materialize(self.spec(), gen)
+
+    def train_logits(self, params, batch):
+        logits, _ = lm.forward(params, self.cfg, mode="train",
+                               tokens=batch["tokens"])
+        return logits
+
+    def prefill(self, params, batch, cache_len=None):
+        return lm.forward(params, self.cfg, mode="prefill",
+                          tokens=batch["tokens"], cache_len=cache_len)
 
     def decode(self, params, cache, tokens, cur_index):
         return lm.forward(params, self.cfg, mode="decode", tokens=tokens,

@@ -35,11 +35,13 @@ def _port_modules():
         yield ".".join(parts)
 
 
-def test_port_imports_without_jax_or_repro():
+def _import_with_jax_blocked(modules):
+    """Import ``modules`` in a fresh interpreter where ``import jax`` fails;
+    assert it succeeds and loaded no module of ``repro``."""
     code = (
         "import importlib, json, sys\n"
         "sys.modules['jax'] = None\n"
-        f"for m in {list(_port_modules())!r}:\n"
+        f"for m in {list(modules)!r}:\n"
         "    importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
         "                 if m == 'repro' or m.startswith('repro.'))))\n")
@@ -48,6 +50,24 @@ def test_port_imports_without_jax_or_repro():
                          env={**os.environ, "PYTHONPATH": str(SRC)})
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "[]"
+
+
+def test_port_imports_without_jax_or_repro():
+    _import_with_jax_blocked(_port_modules())
+
+
+# the prefill -> decode slice's modules, each imported on its own
+SLICE_MODULES = [
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
+    "repro_torch.kernels.ops", "repro_torch.models.ssm",
+    "repro_torch.models.lm", "repro_torch.distributed.steps",
+]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_module_imports_alone_without_jax_or_repro(module):
+    assert module in set(_port_modules())
+    _import_with_jax_blocked([module])
 
 
 @pytest.mark.parametrize("path", sorted(

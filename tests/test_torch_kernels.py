@@ -1,11 +1,15 @@
-"""Port parity for the flash-decode kernel module: the port's plain version
-(what a CPU tensor runs) against the JAX package's Pallas kernel (interpret
-mode, as tests/test_kernels.py runs it) and its ref.py oracle, and — on a
-card only — the CUDA kernel against the plain version.
+"""Port parity for the kernel modules (flash_decode, flash_attention,
+ssd_scan): each port's plain version (what a CPU tensor runs) against the
+JAX package's Pallas kernel (interpret mode, as tests/test_kernels.py runs
+it) and its oracle (ref.py, ``ssd_reference``), and — on a card only — the
+CUDA kernel against the plain version on the same inputs.
 
-Tolerances are the reference's own (tests/test_kernels.py): 2e-4 in f32,
-2e-2 in bf16 (one bf16 ulp near 1 is 7.8e-3; the Pallas kernel and the
-oracle round p at different points).
+Tolerances are the reference's own (tests/test_kernels.py), as
+rtol = atol: 2e-4 in f32 and 2e-2 in bf16 for the attention kernels (one
+bf16 ulp near 1 is 7.8e-3; the Pallas kernels and the oracles round p at
+different points); 3e-4 in f32 and 4e-2 in bf16 for the SSD scan (the
+oracle rounds x·dt and the decay-weighted scores to bf16, the Pallas and
+CUDA kernels keep them in f32).
 
 The JAX package is imported inside the parity test, not at the top, so
 that ``-m gpu`` runs this file where JAX is not installed."""
@@ -13,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ssd_scan as ss
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 3e-4, "bfloat16": 4e-2}
 
 # tests/test_kernels.py::DECODE_CASES (B, S, H, K, D, window, ring), plus
 # G=7 (qwen2-0.5b's 14 q-heads over 2 kv-heads), then (with a softcap) a
@@ -126,3 +133,159 @@ def test_flash_decode_cuda_matches_plain(case, dtype):
                                  window=window, cap=cap)[:, None]
     tol = TOL[dtype]
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------ flash_attention
+
+# tests/test_kernels.py::ATTN_CASES (B, Sq, Skv, H, K, D, causal, window, cap)
+ATTN_CASES = [
+    (2, 64, 64, 4, 2, 32, True, 0, 0.0),
+    (1, 100, 100, 2, 2, 16, True, 24, 50.0),
+    (2, 48, 48, 4, 1, 64, False, 0, 0.0),
+    (1, 96, 96, 8, 8, 128, True, 0, 30.0),
+    (1, 33, 33, 2, 1, 16, True, 7, 0.0),
+]
+
+
+def _attn_inputs(case, seed=7):
+    B, Sq, Skv, H, K, D = case[:6]
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, H, D)).astype(np.float32),
+            rng.standard_normal((B, Skv, K, D)).astype(np.float32),
+            rng.standard_normal((B, Skv, K, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_plain_matches_pallas_and_oracle(case, dtype):
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref
+    B, Sq, Skv, H, K, D, causal, window, cap = case
+    q, k, v = _attn_inputs(case)
+    jd = getattr(jnp, dtype)
+    pallas = jops.flash_attention(jnp.asarray(q, jd), jnp.asarray(k, jd),
+                                  jnp.asarray(v, jd), causal=causal,
+                                  window=window, cap=cap, block_q=32,
+                                  block_k=32)
+    ke, ve = np.repeat(k, H // K, 2), np.repeat(v, H // K, 2)
+    oracle = ref.flash_attention_ref(
+        *(jnp.asarray(a.transpose(0, 2, 1, 3).reshape(B * H, -1, D), jd)
+          for a in (q, ke, ve)), causal=causal, window=window, cap=cap)
+    oracle = np.asarray(oracle, np.float32).reshape(B, H, Sq, D
+                                                    ).transpose(0, 2, 1, 3)
+    got = tops.flash_attention(_torch(q, dtype), _torch(k, dtype),
+                               _torch(v, dtype), causal=causal,
+                               window=window, cap=cap)
+    assert got.shape == (B, Sq, H, D) and got.dtype == getattr(torch, dtype)
+    tol = TOL[dtype]
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------ ssd_scan
+
+# tests/test_kernels.py::SSD_CASES (B, L, H, P, N, chunk); L=50 is ragged
+SSD_CASES = [
+    (2, 64, 3, 16, 8, 16),
+    (1, 50, 2, 8, 16, 16),
+    (1, 128, 4, 32, 16, 32),
+]
+
+
+def _ssd_inputs(case, seed=7):
+    """The reference's draws: x, b, c ~ N(0, 0.25), dt ~ U(0.01, 0.2),
+    a ~ -U(0.5, 2)."""
+    B, L, H, P, N, chunk = case
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, L, H, P)).astype(np.float32) * 0.5
+    dt = rng.uniform(0.01, 0.2, (B, L, H)).astype(np.float32)
+    a = -rng.uniform(0.5, 2.0, (H,)).astype(np.float32)
+    b = rng.standard_normal((B, L, N)).astype(np.float32) * 0.5
+    c = rng.standard_normal((B, L, N)).astype(np.float32) * 0.5
+    return x, dt, a, b, c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_plain_matches_pallas_and_oracle(case, dtype):
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.models.ssm import ssd_reference
+    chunk = case[-1]
+    x, dt, a, b, c = _ssd_inputs(case)
+    jd = getattr(jnp, dtype)
+    jargs = (jnp.asarray(x, jd), jnp.asarray(dt), jnp.asarray(a),
+             jnp.asarray(b, jd), jnp.asarray(c, jd))
+    pallas = jops.ssd(*jargs, chunk=chunk)
+    oracle = ssd_reference(*jargs, chunk=chunk)
+    y, state = tops.ssd(_torch(x, dtype), torch.from_numpy(dt),
+                        torch.from_numpy(a), _torch(b, dtype),
+                        _torch(c, dtype), chunk=chunk)
+    assert y.shape == x.shape and y.dtype == getattr(torch, dtype)
+    assert state.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    for want_y, want_s in (pallas, oracle):
+        np.testing.assert_allclose(_np(y), np.asarray(want_y, np.float32),
+                                   rtol=tol, atol=tol)
+        np.testing.assert_allclose(state.numpy(), np.asarray(want_s),
+                                   rtol=tol, atol=tol)
+
+
+def test_new_kernels_refuse_devices_without_kernel():
+    q = torch.zeros((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention(q, q, q)
+    x = torch.zeros((1, 8, 2, 16), device="meta")
+    b = torch.zeros((1, 8, 4), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ss.ssd_scan(x, b[..., :2], b[0, 0, :2], b, b, chunk=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_CASES + [
+    (2, 300, 300, 16, 8, 128, True, 64, 50.0),     # gemma2-style local
+    (1, 130, 130, 4, 2, 256, True, 0, 0.0),        # D=256: 213 KB of smem
+    (1, 2048, 2048, 14, 2, 64, True, 0, 0.0),      # qwen2-0.5b prefill
+    (4, 512, 512, 14, 2, 64, True, 0, 0.0),
+])
+def test_flash_attention_cuda_matches_plain(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    causal, window, cap = case[6:]
+    q, k, v = (_torch(a, dtype).cuda() for a in _attn_inputs(case))
+    before = fa.flash_attention.launches
+    got = tops.flash_attention(q, k, v, causal=causal, window=window,
+                               cap=cap)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    cap=cap)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES + [
+    (1, 2048, 24, 64, 128, 256),                   # mamba2-130m prefill
+    (4, 512, 24, 64, 128, 256),
+    (1, 300, 24, 64, 128, 256),                    # ragged full-width
+])
+def test_ssd_scan_cuda_matches_plain(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    x, dt, a, b, c = _ssd_inputs(case)
+    args = (_torch(x, dtype).cuda(), torch.from_numpy(dt).cuda(),
+            torch.from_numpy(a).cuda(), _torch(b, dtype).cuda(),
+            _torch(c, dtype).cuda())
+    before = ss.ssd_scan.launches
+    y, state = tops.ssd(*args, chunk=case[-1])
+    torch.cuda.synchronize()
+    assert ss.ssd_scan.launches == before + 1
+    want_y, want_s = ss.ssd_scan_plain(*args, chunk=case[-1])
+    tol = SSD_TOL[dtype]
+    np.testing.assert_allclose(_np(y), _np(want_y), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(state), _np(want_s), rtol=tol, atol=tol)
