@@ -12,13 +12,17 @@ prefill phase one per model):
              kernel's registers, shared memory and spills.
 3. kernels — each kernel against its plain PyTorch version on the card, in
              f32 and bf16: flash_decode over the reference's decode cases, a
-             gemma2-style window + softcap + ring case and the qwen2-0.5b
-             serving shapes; flash_attention over the reference's ATTN_CASES,
-             a gemma2-style window + softcap case, D=256 and the qwen2-0.5b
-             prefill shapes; ssd_scan over the reference's SSD_CASES and the
-             mamba2-130m prefill shapes. Then kernel, plain and library times
-             at the main paths' shapes: device time from CUDA-graph replay
-             and time per eager call, with CUDA events.
+             gemma2-style window + softcap + ring case, the qwen2-0.5b
+             serving shapes and the prefill path's first decode step;
+             flash_attention over the reference's ATTN_CASES, a gemma2-style
+             window + softcap case, D=256, D=80 and the qwen2-0.5b prefill
+             shapes; ssd_scan over the reference's SSD_CASES and the
+             mamba2-130m prefill shapes. The count of HGMMA (tensor-core)
+             instructions in the built flash_attention library (cuobjdump).
+             Then kernel, plain and library times at the main paths' shapes
+             (flash_attention also at phi4-mini's D=128 heads): device time
+             from CUDA-graph replay and time per eager call, with CUDA
+             events, and the achieved TFLOP/s, GB/s and share of the bound.
 4. prefill — full-width qwen2-0.5b and mamba2-130m (random weights from a
              seed): make_prefill_step at (B, S) = (1, 2048) and (4, 512), then
              16 greedy make_decode_step steps from the prefilled cache or
@@ -32,7 +36,9 @@ prefill phase one per model):
              random weights from a seed) served by a Clockwork Controller and
              one Worker over TorchBackend on a RealClock; checks answers and
              that every INFER went through the kernel (24 launches each);
-             then INFER time per bucket and a torch.profiler breakdown.
+             then INFER time per bucket and a torch.profiler breakdown, which
+             must show 24 flash_decode device kernels per INFER (one per
+             layer: a single launch per call).
 
 Then the {"kernels": [...]} summary, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}. Any failure exits nonzero before that.
@@ -66,11 +72,12 @@ DECODE_CASES = [
 ]
 # qwen2-0.5b at the published widths: K=2 kv-heads, G=7, D=64, bf16. ctx 128
 # with cur 64 is what the serving engine runs, at each of its batch buckets;
-# 4096 is a long full cache.
+# 4096 is a long full cache; (1, 2064, 2048) is the first decode step after
+# the prefill path's (1, 2048) prompt (cache_len 2048 + N_DECODE).
 CTX, CUR = 128, 64
 BUCKETS = (1, 2, 4, 8)
 SERVE_SHAPES = ([(b, CTX, CUR) for b in BUCKETS]
-                + [(1, 4096, 4095), (8, 4096, 4095)])
+                + [(1, 4096, 4095), (8, 4096, 4095), (1, 2064, 2048)])
 # traffic as tests/test_system.py::test_real_jax_serving_roundtrip: one
 # request every 20 ms, SLO 5 s
 N_REQUESTS, GAP_S, SLO_S = 30, 0.02, 5.0
@@ -80,8 +87,9 @@ SWEEP_REPS = 200
 
 # tests/test_kernels.py::ATTN_CASES (B, Sq, Skv, H, K, D, causal, window,
 # cap); then a gemma2-style local layer at its full heads (32 over 16 kv
-# heads, D=128: 114 KB of shared memory) with a window shorter than S and
-# softcap 50; then the largest head, D=256 (213 KB)
+# heads, D=128) with a window shorter than S and softcap 50; then the
+# largest head, D=256 (160 KB of shared memory in bf16); then D=80, which
+# the bf16 kernel runs on its D=128 panels with zero-filled columns
 ATTN_CASES = [
     (2, 64, 64, 4, 2, 32, True, 0, 0.0),
     (1, 100, 100, 2, 2, 16, True, 24, 50.0),
@@ -90,7 +98,12 @@ ATTN_CASES = [
     (1, 33, 33, 2, 1, 16, True, 7, 0.0),
     (1, 512, 512, 32, 16, 128, True, 128, 50.0),
     (1, 130, 130, 4, 2, 256, True, 0, 0.0),
+    (1, 96, 96, 4, 2, 80, True, 0, 0.0),
 ]
+# flash_attention timed at the prefill path's shapes (qwen2-0.5b: H=14,
+# K=2, D=64) and at phi4-mini's D=128 heads (H=24, K=8) at (1, 2048)
+ATTN_TIMED = [(B, S, 14, 2, 64) for B, S in [(1, 2048), (4, 512)]] + [
+    (1, 2048, 24, 8, 128)]
 # tests/test_kernels.py::SSD_CASES (B, L, H, P, N, chunk); L=50 is ragged
 SSD_CASES = [(2, 64, 3, 16, 8, 16), (1, 50, 2, 8, 16, 16),
              (1, 128, 4, 32, 16, 32)]
@@ -231,6 +244,15 @@ def _bound(bytes_moved, ops):
             "bytes": bytes_moved, "operations": ops}
 
 
+def _rated(entry):
+    """Achieved TFLOP/s and GB/s of the kernel's device time, and the share
+    of the bound it reaches (bound_ms / ms)."""
+    ms = entry["ms"]
+    return {**entry, "tflops": entry["operations"] / ms / 1e9,
+            "gbps": entry["bytes"] / ms / 1e6,
+            "bound_share": entry["bound_ms"] / ms}
+
+
 def _timed(kernel, plain, library):
     """Device ms (CUDA-graph replay) and eager ms of each callable; library
     may be None."""
@@ -270,9 +292,10 @@ def _time_shape(B, S, cur):
                    + 2 * B * n_keys * K * D * 2        # K and V rows
                    + S * 4)                            # kpos
     ops = 4 * B * H * n_keys * D                       # QK^T and PV
-    return {"B": B, "S": S, "cur": cur, "K": K, "G": G, "D": D,
-            "dtype": "bfloat16", **times, "library_max_abs_err": lib_err,
-            **_bound(bytes_moved, ops)}
+    return _rated({"B": B, "S": S, "cur": cur, "K": K, "G": G, "D": D,
+                   "n_split": fd.split_plan(B, K, S, fd._sm_count(q.device)),
+                   "dtype": "bfloat16", **times, "library_max_abs_err": lib_err,
+                   **_bound(bytes_moved, ops)})
 
 
 def _allclose_err(got, want, tol):
@@ -341,12 +364,11 @@ def _check_ssd(case, dtype):
     return max(err_y, err_s)
 
 
-def _time_attention(B, S):
-    """Kernel, plain and SDPA times at one qwen2-0.5b prefill shape."""
+def _time_attention(B, S, H, K, D):
+    """Kernel, plain and SDPA times at one causal prefill shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    H, K, D = 14, 2, 64
     q, k, v = _attn_tensors((B, S, S, H, K, D), torch.bfloat16, seed=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # (B, heads, S, D)
     # yardstick only: one library call computing the same function
@@ -359,9 +381,9 @@ def _time_attention(B, S):
     pairs = S * (S + 1) // 2                 # (q, k) pairs under the mask
     bytes_moved = 2 * (B * S * H * D) * 2 + 2 * (B * S * K * D) * 2
     ops = 4 * B * H * D * pairs              # QK^T and PV
-    return {"B": B, "S": S, "H": H, "K": K, "D": D, "causal": True,
-            "dtype": "bfloat16", **times, "library_max_abs_err": lib_err,
-            **_bound(bytes_moved, ops)}
+    return _rated({"B": B, "S": S, "H": H, "K": K, "D": D, "causal": True,
+                   "dtype": "bfloat16", **times, "library_max_abs_err": lib_err,
+                   **_bound(bytes_moved, ops)})
 
 
 def _time_ssd(B, L):
@@ -384,10 +406,25 @@ def _time_ssd(B, L):
                    + B * L * H * 4 + H * 4             # dt, a
                    + 2 * (B * L * N) * 2               # b, c
                    + B * H * P * N * 4)                # final state
-    return {"B": B, "L": L, "H": H, "P": P, "N": N, "chunk": Q,
-            "dtype": "bfloat16", **times,
-            "library_note": "no single PyTorch call computes the SSD scan",
-            **_bound(bytes_moved, ops)}
+    return _rated({"B": B, "L": L, "H": H, "P": P, "N": N, "chunk": Q,
+                   "dtype": "bfloat16", **times,
+                   "library_note": "no single PyTorch call computes the SSD scan",
+                   **_bound(bytes_moved, ops)})
+
+
+def _hgmma_count():
+    """HGMMA (wgmma) instructions in the built flash_attention library's
+    SASS, from cuobjdump; a note where the tool is missing."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "cuobjdump not found: HGMMA count not measured"
+    sass = subprocess.run([tool, "-sass", str(build.build("flash_attention"))],
+                          capture_output=True, text=True, timeout=120)
+    if sass.returncode != 0:
+        return f"cuobjdump failed: {sass.stderr.strip()[:200]}"
+    return sum(line.count("HGMMA") for line in sass.stdout.splitlines())
 
 
 def phase_kernels():
@@ -407,6 +444,10 @@ def phase_kernels():
         "max_abs_err_cases": max(errs), "max_abs_err_serving": max(serve_errs),
         "tolerance": TOL, "shapes": shapes}
 
+    hgmma = _hgmma_count()
+    if hgmma == 0:
+        die("kernels", "flash_attention's library holds no HGMMA instruction: "
+                       "the bf16 kernel does not run on the tensor cores")
     errs = [_check_attention(c, d) for c in ATTN_CASES
             for d in ("float32", "bfloat16")]
     path_errs = [_check_attention((B, S, S, 14, 2, 64, True, 0, 0.0),
@@ -416,7 +457,8 @@ def phase_kernels():
         "cases_checked": len(errs) + len(path_errs),
         "max_abs_err_cases": max(errs), "max_abs_err_path": max(path_errs),
         "tolerance": TOL,
-        "shapes": [_time_attention(B, S) for B, S in PREFILL_SHAPES]}
+        "hgmma_instructions": hgmma,
+        "shapes": [_time_attention(*shape) for shape in ATTN_TIMED]}
 
     errs = [_check_ssd(c, d) for c in SSD_CASES
             for d in ("float32", "bfloat16")]
@@ -529,7 +571,9 @@ def _wall_s(fn):
 def _profile(run):
     """One ``run()`` (which returns its wall seconds) under torch.profiler:
     its wall time, the device time its kernels sum to, the idle share, how
-    many kernels it launched and the eight that took the most time."""
+    many kernels it launched, how many of them were each of the port's
+    kernels (device kernels whose name holds the kernel's), and the eight
+    that took the most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -542,6 +586,9 @@ def _profile(run):
             "device_busy_ms": busy_us / 1e3 if dev else None,
             "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3) if dev else None,
             "kernels": sum(e.count for e in dev),
+            "port_kernels": {name: sum(e.count for e in dev if name in e.key)
+                             for name in ("flash_attention", "flash_decode",
+                                          "ssd_")},
             "top_kernels": [{"name": e.key[:60], "count": e.count,
                              "ms": getattr(e, "self_device_time_total", 0) / 1e3}
                             for e in top]}
@@ -854,10 +901,18 @@ def phase_serve():
     sweep = jm.measure(reps=SWEEP_REPS)
     res["sweep_by_bucket"] = {str(b): _spread(d) for (_, b), d in sweep.items()}
     res["profiled_infers"] = [_profile_infer(jm, b) for b in (1, 8)]
+    # one flash_decode device kernel per layer and INFER: a single launch
+    res["flash_decode_device_kernels_per_infer"] = [
+        p["port_kernels"]["flash_decode"] for p in res["profiled_infers"]]
+    res["ok"] = res["ok"] and all(
+        n == n_layers for n in res["flash_decode_device_kernels_per_infer"])
     emit(res)
     if not res["ok"]:
         die("serve", f"{len(ok)}/{n_req} ok, {launches} launches for "
-                     f"{infers} INFERs ({n_layers} per INFER expected)")
+                     f"{infers} INFERs ({n_layers} per INFER expected), "
+                     f"flash_decode device kernels per profiled INFER "
+                     f"{res['flash_decode_device_kernels_per_infer']} "
+                     f"({n_layers} expected)")
     return res
 
 

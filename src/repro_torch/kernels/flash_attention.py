@@ -5,7 +5,9 @@ flash_attention_bhsd``. On a CUDA tensor :func:`flash_attention` launches
 the hand-written kernel in ``csrc/flash_attention.cu`` (one block per
 64-row q tile and head, walking only the live key tiles; see the source);
 on a CPU tensor it runs :func:`flash_attention_plain`. Any other device
-raises.
+raises. The kernel is chosen by dtype: bfloat16 (the models' type) runs on
+the tensor cores (wgmma) with K/V tiles brought by TMA; float32 (the parity
+cases) runs the CUDA-core kernel.
 
 Layout (the model's, read through strides, no copy): q (B, Sq, H, D);
 k, v (B, Skv, K, D); query head h reads kv head h // G with G = H // K.
@@ -82,11 +84,37 @@ def _check(q, k, v, max_d: int):
         raise ValueError(f"flash_attention: D={D} > {max_d} is not supported")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        check_tma_layout(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
             "flash_attention: the CUDA kernel has no backward yet (it comes "
             "with the training port); run under torch.no_grad()")
+
+
+def check_tma_layout(q, k, v):
+    """Raise unless the bf16 kernel's TMA loads can read q, k and v as they
+    are: D a multiple of 16, each base 16-byte aligned and every stride of a
+    dim longer than one a multiple of 16 bytes."""
+    D = q.shape[-1]
+    if D % 16:
+        raise ValueError(f"flash_attention: bf16 needs D a multiple of 16, "
+                         f"got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(t.stride(i) % 8 or t.stride(i) <= 0
+                                    for i in range(3) if t.shape[i] > 1):
+            raise ValueError(
+                f"flash_attention: {name} {tuple(t.shape)} with strides "
+                f"{t.stride()} cannot be read by TMA: the base must be "
+                f"16-byte aligned and every stride a multiple of 8 elements")
+
+
+def _strides(t):
+    """Strides of dims 0-2 for the kernel. A dim of length one is never
+    stepped over, so its stride is rounded up to one TMA accepts."""
+    return [t.stride(i) if t.shape[i] > 1 else max(8, -(-t.stride(i) // 8) * 8)
+            for i in range(3)]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -107,9 +135,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     rc = launch(
         _DTYPES[q.dtype],
-        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-        k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
-        v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
+        q.data_ptr(), *_strides(q),
+        k.data_ptr(), *_strides(k),
+        v.data_ptr(), *_strides(v),
         out.data_ptr(), B, H, H // K, Sq, Skv, D, int(bool(causal)),
         int(window), float(cap), D ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -2,9 +2,12 @@
 
 Port of the Pallas TPU kernel ``repro/kernels/flash_decode.py::
 flash_decode_bkgd``. On a CUDA tensor :func:`flash_decode` launches the
-hand-written kernel in ``csrc/flash_decode.cu`` (sequence split across
-blocks, then a combine kernel; see the source for the design); on a CPU
-tensor it runs :func:`flash_decode_plain`. Any other device raises.
+hand-written kernel in ``csrc/flash_decode.cu`` (one launch per call: a
+long cache is split across the blocks of one thread-block cluster, whose
+partials are merged through distributed shared memory; bfloat16 runs its
+products on the tensor cores, float32 on the CUDA cores; see the source for
+the design); on a CPU tensor it runs :func:`flash_decode_plain`. Any other
+device raises.
 
 Layout (the model's, read through strides, no copy): q (B, H, D);
 k, v (B, S, K, D); kpos (S,) int32 absolute position per cache slot
@@ -18,11 +21,12 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.utils import cdiv
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 MAX_G = 16
 MAX_D = 256
+MAX_SPLIT = 8           # the portable thread-block cluster size
+MIN_SPLIT_KEYS = 256    # no split shorter than this unless there is one
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SM_COUNT: Dict[int, int] = {}
 
@@ -50,18 +54,16 @@ def flash_decode_plain(q, k, v, kpos, cur, *, window: int = 0,
 
 
 def _kernel():
-    """(launch function, keys per tile) of the built library."""
+    """The launch function of the built library."""
     lib = build.load("flash_decode")
     fn = lib.flash_decode_launch
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [I, P, L, L, P, L, L, L, P, L, L, L, P, P, P, P, P,
-                       I, I, I, I, I, I, I, I, I, ctypes.c_float,
+        fn.argtypes = [I, P, L, L, P, L, L, L, P, L, L, L, P, P,
+                       I, I, I, I, I, I, I, I, ctypes.c_float,
                        ctypes.c_float, P]
         fn.restype = I
-        lib.flash_decode_tile.argtypes = []
-        lib.flash_decode_tile.restype = I
-    return fn, lib.flash_decode_tile()
+    return fn
 
 
 def _sm_count(device: torch.device) -> int:
@@ -71,13 +73,13 @@ def _sm_count(device: torch.device) -> int:
     return _SM_COUNT[idx]
 
 
-def split_plan(B: int, K: int, S: int, sms: int, tile: int):
-    """(n_split, split_len): about two blocks per SM over the B*K rows, each
-    split a whole number of ``tile``-key steps and none of them empty."""
-    n_tiles = cdiv(S, tile)
-    n_split = min(max(1, cdiv(2 * sms, B * K)), n_tiles)
-    split_len = cdiv(n_tiles, n_split) * tile
-    return cdiv(S, split_len), split_len
+def split_plan(B: int, K: int, S: int, sms: int) -> int:
+    """Blocks (one cluster) per (b, kh) row: one when the cache is short;
+    otherwise as many as keep every split at least ``MIN_SPLIT_KEYS`` keys
+    long, at most ``MAX_SPLIT``, and about one wave of blocks over the
+    ``sms`` multiprocessors. Split i reads keys [i*S // n_split,
+    (i+1)*S // n_split)."""
+    return max(1, min(MAX_SPLIT, S // MIN_SPLIT_KEYS, sms // (B * K)))
 
 
 def _check(q, k, v, kpos):
@@ -100,6 +102,13 @@ def _check(q, k, v, kpos):
                          f"D={D} > {MAX_D} is not supported")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_decode: the head dim must be contiguous")
+    for name, t in (("k", k), ("v", v)):      # 16-byte cp.async copies
+        step = 16 // t.element_size()
+        if (t.data_ptr() % 16 or D % step
+                or any(t.stride(i) % step for i in range(3) if t.shape[i] > 1)):
+            raise ValueError(f"flash_decode: {name} needs a 16-byte aligned "
+                             f"base, D and every stride a multiple of {step} "
+                             f"elements; got D={D}, strides {t.stride()}")
     if (kpos.dtype != torch.int32 or kpos.shape != (S,)
             or not kpos.is_contiguous()):
         raise ValueError("flash_decode: kpos must be a contiguous int32 (S,)")
@@ -118,22 +127,15 @@ def flash_decode(q, k, v, kpos, cur, *, window: int = 0, cap: float = 0.0):
     B, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
     G = H // K
-    launch, tile = _kernel()
-    n_split, split_len = split_plan(B, K, S, _sm_count(q.device), tile)
+    n_split = split_plan(B, K, S, _sm_count(q.device))
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    part_m = torch.empty((B * K, n_split, G), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B * K, n_split, G, D), dtype=torch.float32,
-                           device=q.device)
-    rc = launch(
+    rc = _kernel()(
         _DTYPES[q.dtype],
         q.data_ptr(), q.stride(0), q.stride(1),
         k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
         v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
         kpos.data_ptr(), out.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        B, K, G, S, D, n_split, split_len, int(cur), int(window),
+        B, K, G, S, D, n_split, int(cur), int(window),
         float(cap), D ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

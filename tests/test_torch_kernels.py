@@ -93,14 +93,40 @@ def test_flash_decode_plain_matches_pallas_and_oracle(case, dtype):
 
 
 @pytest.mark.parametrize("B,K,S", [(1, 2, 128), (8, 2, 128), (1, 2, 4096),
-                                   (8, 2, 4096), (2, 1, 40), (1, 4, 1)])
+                                   (8, 2, 4096), (2, 1, 40), (1, 4, 1),
+                                   (1, 2, 2064), (1, 2, 600), (64, 8, 8192)])
 def test_split_plan_covers_cache(B, K, S):
-    """Every split the kernel is launched with holds at least one key, the
-    splits tile [0, S) and each is a whole number of tiles."""
-    n_split, split_len = fd.split_plan(B, K, S, sms=132, tile=32)
-    assert split_len % 32 == 0
-    assert (n_split - 1) * split_len < S <= n_split * split_len
-    assert B * K * n_split < 2 * 132 + B * K
+    """The splits tile [0, S), each key in exactly one; there are at most 8
+    (one portable cluster), none shorter than 256 keys unless there is only
+    one, and the grid is about one wave of blocks on 132 SMs."""
+    n_split = fd.split_plan(B, K, S, sms=132)
+    bounds = [(i * S // n_split, (i + 1) * S // n_split)    # as the kernel
+              for i in range(n_split)]
+    assert 1 <= n_split <= fd.MAX_SPLIT == 8
+    assert bounds[0][0] == 0 and bounds[-1][1] == S
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    if n_split > 1:
+        assert min(end - begin for begin, end in bounds) >= 256
+    assert B * K * n_split <= max(132, B * K)
+
+
+def test_split_plan_serving_shape_is_one_block_per_row():
+    """qwen2-0.5b's served cache (S=128) at every engine bucket: one block
+    per (b, kh), which writes the output itself."""
+    assert [fd.split_plan(b, 2, 128, sms=132) for b in (1, 2, 4, 8)] == [1] * 4
+    assert fd.split_plan(1, 2, 4096, sms=132) == 8
+
+
+def test_flash_decode_refuses_caches_cp_async_cannot_read():
+    """A cache whose rows are not 16-byte aligned is refused, not read
+    another way."""
+    q = torch.zeros((1, 4, 16), dtype=torch.bfloat16)
+    kpos = torch.arange(8, dtype=torch.int32)
+    good = torch.zeros((1, 8, 2, 16), dtype=torch.bfloat16)
+    bad = torch.zeros((1, 8, 2, 20), dtype=torch.bfloat16)[..., :16]
+    fd._check(q, good, good, kpos)
+    with pytest.raises(ValueError, match="16-byte"):
+        fd._check(q, bad, good, kpos)
 
 
 def test_flash_decode_refuses_devices_without_kernel():
@@ -182,6 +208,21 @@ def test_flash_attention_plain_matches_pallas_and_oracle(case, dtype):
     for want in (pallas, oracle):
         np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
                                    rtol=tol, atol=tol)
+
+
+def test_flash_attention_refuses_layouts_tma_cannot_read():
+    """The bf16 kernel's layout check refuses what TMA cannot read (a head
+    stride of 40 bytes, D not a multiple of 16) and raises: the wrapper has
+    no other way to the card."""
+    k = torch.zeros((1, 8, 1, 16), dtype=torch.bfloat16)
+    q = torch.zeros((1, 8, 3, 20), dtype=torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError, match="cannot be read by TMA"):
+        fa.check_tma_layout(q, k, k)
+    fa.check_tma_layout(q.contiguous(), k, k)       # same values, packed
+    q24 = torch.zeros((1, 8, 2, 24), dtype=torch.bfloat16)
+    k24 = torch.zeros((1, 8, 1, 24), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fa.check_tma_layout(q24, k24, k24)
 
 
 # ------------------------------------------------------------ ssd_scan
@@ -289,3 +330,102 @@ def test_ssd_scan_cuda_matches_plain(case, dtype):
     tol = SSD_TOL[dtype]
     np.testing.assert_allclose(_np(y), _np(want_y), rtol=tol, atol=tol)
     np.testing.assert_allclose(_np(state), _np(want_s), rtol=tol, atol=tol)
+
+
+# ------------------------------------------------ layouts, splits and graphs
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    (2, 200, 200, 6, 2, 64, True, 0, 0.0),         # S not a multiple of 64
+    (1, 150, 150, 4, 2, 128, True, 40, 30.0),      # D=128: two panels
+    (1, 100, 100, 4, 1, 256, False, 0, 0.0),       # D=256: four panels
+    (1, 96, 96, 4, 2, 80, True, 0, 0.0),           # D=80 runs the 128 panels
+])
+def test_flash_attention_cuda_strided_views(case, dtype):
+    """q, k and v as views into one fused (B, S, H + 2K, D) projection, and
+    q as the transpose of a (B, H, S, D) tensor: read through their strides,
+    no copy, against the plain version on the same views."""
+    _card()
+    B, Sq, Skv, H, K, D, causal, window, cap = case
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dt = getattr(torch, dtype)
+    qkv = torch.randn((B, Sq, H + 2 * K, D), generator=g, device="cuda").to(dt)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+    qt = torch.randn((B, H, Sq, D), generator=g, device="cuda").to(dt
+                                                                   ).transpose(1, 2)
+    tol = TOL[dtype]
+    for qq in (q, qt):
+        got = fa.flash_attention(qq, k, v, causal=causal, window=window,
+                                 cap=cap)
+        want = fa.flash_attention_plain(qq, k, v, causal=causal,
+                                        window=window, cap=cap)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_cuda_raises_on_layout_tma_cannot_read():
+    _card()
+    q = torch.zeros((1, 64, 3, 20), dtype=torch.bfloat16, device="cuda")
+    k = torch.zeros((1, 64, 1, 16), dtype=torch.bfloat16, device="cuda")
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="cannot be read by TMA"):
+        fa.flash_attention(q[..., :16], k, k)
+    assert fa.flash_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,n_split", [(128, 1), (600, 2), (4096, 8)])
+def test_flash_decode_cuda_splits(S, n_split, dtype):
+    """One, two and eight blocks per cluster, with a window whose first
+    splits are wholly masked at S=4096, against the plain version."""
+    _card()
+    B, H, K, D = 1, 14, 2, 64
+    assert fd.split_plan(B, K, S, fd._sm_count(torch.device("cuda"))) == n_split
+    tol = TOL[dtype]
+    for window, cap in ((0, 0.0), (S // 4, 50.0)):
+        case = (B, S, H, K, D, window, False, cap, S - 3)
+        q, k, v, kpos = _inputs(case)
+        args = [_torch(a, dtype).cuda() for a in (q[:, 0], k, v)]
+        kp = torch.from_numpy(kpos).cuda()
+        got = fd.flash_decode(*args, kp, S - 3, window=window, cap=cap)
+        want = fd.flash_decode_plain(*args, kp, S - 3, window=window, cap=cap)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_kernels_replay_in_a_cuda_graph():
+    """Each kernel captured in a CUDA graph: two replays in a row give the
+    eager result bit for bit."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf = torch.bfloat16
+    q = torch.randn((1, 300, 14, 64), generator=g, device="cuda").to(bf)
+    k = torch.randn((1, 300, 2, 64), generator=g, device="cuda").to(bf)
+    v = torch.randn((1, 300, 2, 64), generator=g, device="cuda").to(bf)
+    kc = torch.randn((1, 2064, 2, 64), generator=g, device="cuda").to(bf)
+    vc = torch.randn((1, 2064, 2, 64), generator=g, device="cuda").to(bf)
+    kpos = torch.arange(2064, dtype=torch.int32, device="cuda")
+    calls = (lambda: fa.flash_attention(q, k, v),
+             lambda: fd.flash_decode(q[:, 0], kc, vc, kpos, 2048))
+    for fn in calls:
+        eager = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        for _ in range(2):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
