@@ -17,12 +17,15 @@ prefill phase one per model):
              flash_attention over the reference's ATTN_CASES, a gemma2-style
              window + softcap case, D=256, D=80 and the qwen2-0.5b prefill
              shapes; ssd_scan over the reference's SSD_CASES and the
-             mamba2-130m prefill shapes. The count of HGMMA (tensor-core)
-             instructions in the built flash_attention library (cuobjdump).
-             Then kernel, plain and library times at the main paths' shapes
-             (flash_attention also at phi4-mini's D=128 heads): device time
-             from CUDA-graph replay and time per eager call, with CUDA
-             events, and the achieved TFLOP/s, GB/s and share of the bound.
+             mamba2-130m prefill shapes. The count of
+             HGMMA (tensor-core) instructions in the built flash_attention
+             and ssd_scan libraries (cuobjdump). Then kernel, plain and
+             library times at the main paths' shapes (flash_attention also
+             at phi4-mini's D=128 heads): device time from CUDA-graph replay
+             and time per eager call, with CUDA events, and the achieved
+             TFLOP/s, GB/s and share of the bound; for ssd_scan also, from
+             profiled calls, the device kernels per call, each pass's
+             device time and the head group in use.
 4. prefill — full-width qwen2-0.5b and mamba2-130m (random weights from a
              seed): make_prefill_step at (B, S) = (1, 2048) and (4, 512), then
              16 greedy make_decode_step steps from the prefilled cache or
@@ -40,8 +43,11 @@ prefill phase one per model):
              must show 24 flash_decode device kernels per INFER (one per
              layer: a single launch per call).
 
-Then the {"kernels": [...]} summary, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}. Any failure exits nonzero before that.
+Every torch.profiler reading is taken from the most complete of three
+profiled sessions (the profiler now and then drops a buffer of device
+records). Then the {"kernels": [...]} summary, the nvidia-smi line, and as
+the last line {"ok": true, "device": {...}}. Any failure exits nonzero
+before that, with its reason on stdout (a JSON line) and on stderr.
 Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -107,8 +113,12 @@ ATTN_TIMED = [(B, S, 14, 2, 64) for B, S in [(1, 2048), (4, 512)]] + [
 # tests/test_kernels.py::SSD_CASES (B, L, H, P, N, chunk); L=50 is ragged
 SSD_CASES = [(2, 64, 3, 16, 8, 16), (1, 50, 2, 8, 16, 16),
              (1, 128, 4, 32, 16, 32)]
-# the reference's SSD tolerance (the oracle rounds x*dt and the weighted
-# scores to bf16; the kernel keeps them in f32)
+# the reference's SSD tolerance. Against the plain version in bf16: both
+# round x*dt and the decay-weighted scores to bf16; the plain version also
+# rounds the scores C.B^T and the intra-chunk product to bf16 (its bf16
+# einsums), which the kernel keeps in f32; the kernel rounds the chunk-state
+# operand x*dt*to_end to bf16 (the plain version takes that product in f32)
+# and carries S_in into the inter-chunk product as two bf16 parts.
 SSD_TOL = {"float32": 3e-4, "bfloat16": 4e-2}
 # the prefill path: (B, S) for qwen2-0.5b (bf16, H=14, K=2, D=64, causal)
 # and mamba2-130m (bf16, H=24, P=64, N=128, chunk 256), each followed by
@@ -125,6 +135,7 @@ def emit(obj):
 
 def die(phase, msg):
     emit({"phase": phase, "ok": False, "error": msg})
+    print(f"chip_smoke: {phase} failed: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -349,6 +360,7 @@ def _ssd_tensors(case, dtype, seed=0):
 
 
 def _check_ssd(case, dtype):
+    """(max abs error of y, of the state) against the plain version."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
     args = _ssd_tensors(case, getattr(torch, dtype))
@@ -359,9 +371,10 @@ def _check_ssd(case, dtype):
     err_y, ok_y = _allclose_err(y, want_y, tol)
     err_s, ok_s = _allclose_err(state, want_s, tol)
     if not (ok_y and ok_s):
-        die("kernels", f"ssd_scan {case} {dtype}: max abs err y {err_y}, "
-                       f"state {err_s}, outside rtol = atol = {tol}")
-    return max(err_y, err_s)
+        die("kernels", f"ssd_scan {case} {dtype}: "
+                       f"max abs err y {err_y}, state {err_s}, outside "
+                       f"rtol = atol = {tol}")
+    return err_y, err_s
 
 
 def _time_attention(B, S, H, K, D):
@@ -386,9 +399,37 @@ def _time_attention(B, S, H, K, D):
                    **_bound(bytes_moved, ops)})
 
 
+def _ssd_passes(args, Q, calls=10):
+    """The device kernels of ``calls`` ssd_scan calls under torch.profiler:
+    kernels per call, each pass's name and device ms per call, and the head
+    group in use (the last template argument of ssd_chunk_output_bf16)."""
+    import re
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    ss.ssd_scan(*args, chunk=Q)
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            ss.ssd_scan(*args, chunk=Q)
+        torch.cuda.synchronize()
+
+    dev, _, sessions = _device_events(run)
+    hg = [int(m.group(1)) for e in dev for m in
+          [re.search(r"ssd_chunk_output_bf16<\d+, \d+, (\d+)>", e.key)] if m]
+    return {"head_group": hg[0] if len(hg) == 1 else
+            f"not measured: {len(hg)} output kernels in the profile",
+            "device_kernels_per_call": sum(e.count for e in dev) / calls,
+            "profile_sessions_kernels": sessions,
+            "passes": [{"name": e.key[:60], "count": e.count,
+                        "ms_per_call": getattr(e, "self_device_time_total", 0)
+                        / 1e3 / calls} for e in dev]}
+
+
 def _time_ssd(B, L):
-    """Kernel and plain times at one mamba2-130m prefill shape. No single
-    PyTorch call computes the SSD scan, so there is no library time."""
+    """Kernel and plain times at one mamba2-130m prefill shape, and the
+    device time of each pass. No single PyTorch call computes the SSD scan,
+    so there is no library time."""
     import torch
     from repro_torch.kernels import ssd_scan as ss
     H, P, N, Q = 24, 64, 128, 256
@@ -409,18 +450,19 @@ def _time_ssd(B, L):
     return _rated({"B": B, "L": L, "H": H, "P": P, "N": N, "chunk": Q,
                    "dtype": "bfloat16", **times,
                    "library_note": "no single PyTorch call computes the SSD scan",
+                   **_ssd_passes(args, Q),
                    **_bound(bytes_moved, ops)})
 
 
-def _hgmma_count():
-    """HGMMA (wgmma) instructions in the built flash_attention library's
-    SASS, from cuobjdump; a note where the tool is missing."""
+def _hgmma_count(name):
+    """HGMMA (wgmma) instructions in the SASS of the built library ``name``,
+    from cuobjdump; a note where the tool is missing."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return "cuobjdump not found: HGMMA count not measured"
-    sass = subprocess.run([tool, "-sass", str(build.build("flash_attention"))],
+    sass = subprocess.run([tool, "-sass", str(build.build(name))],
                           capture_output=True, text=True, timeout=120)
     if sass.returncode != 0:
         return f"cuobjdump failed: {sass.stderr.strip()[:200]}"
@@ -444,10 +486,12 @@ def phase_kernels():
         "max_abs_err_cases": max(errs), "max_abs_err_serving": max(serve_errs),
         "tolerance": TOL, "shapes": shapes}
 
-    hgmma = _hgmma_count()
-    if hgmma == 0:
-        die("kernels", "flash_attention's library holds no HGMMA instruction: "
-                       "the bf16 kernel does not run on the tensor cores")
+    hgmma = {name: _hgmma_count(name) for name in ("flash_attention",
+                                                    "ssd_scan")}
+    for name, count in hgmma.items():
+        if count == 0:
+            die("kernels", f"{name}'s library holds no HGMMA instruction: "
+                           f"its bf16 kernel does not run on the tensor cores")
     errs = [_check_attention(c, d) for c in ATTN_CASES
             for d in ("float32", "bfloat16")]
     path_errs = [_check_attention((B, S, S, 14, 2, 64, True, 0, 0.0),
@@ -457,18 +501,21 @@ def phase_kernels():
         "cases_checked": len(errs) + len(path_errs),
         "max_abs_err_cases": max(errs), "max_abs_err_path": max(path_errs),
         "tolerance": TOL,
-        "hgmma_instructions": hgmma,
+        "hgmma_instructions": hgmma["flash_attention"],
         "shapes": [_time_attention(*shape) for shape in ATTN_TIMED]}
 
-    errs = [_check_ssd(c, d) for c in SSD_CASES
+    errs = [max(_check_ssd(c, d)) for c in SSD_CASES
             for d in ("float32", "bfloat16")]
     path_errs = [_check_ssd((B, L, 24, 64, 128, 256), "bfloat16")
                  for B, L in PREFILL_SHAPES]
     res["ssd_scan"] = {
         "phase": "kernels", "ok": True, "kernel": "ssd_scan",
         "cases_checked": len(errs) + len(path_errs),
-        "max_abs_err_cases": max(errs), "max_abs_err_path": max(path_errs),
+        "max_abs_err_cases": max(errs),
+        "max_abs_err_path": max(max(e) for e in path_errs),
+        "state_max_abs_err_path": max(e[1] for e in path_errs),
         "tolerance": SSD_TOL,
+        "hgmma_instructions": hgmma["ssd_scan"],
         "shapes": [_time_ssd(B, L) for B, L in PREFILL_SHAPES]}
     for r in res.values():
         emit(r)
@@ -568,17 +615,36 @@ def _wall_s(fn):
     return time.perf_counter() - t0
 
 
-def _profile(run):
-    """One ``run()`` (which returns its wall seconds) under torch.profiler:
-    its wall time, the device time its kernels sum to, the idle share, how
-    many kernels it launched, how many of them were each of the port's
-    kernels (device kernels whose name holds the kernel's), and the eight
-    that took the most time."""
+def _device_events(run, tries=3):
+    """``run()`` under torch.profiler ``tries`` times: the device kernels'
+    key averages and ``run()``'s result from the session that recorded the
+    most device kernels, and each session's count. The profiler now and
+    then drops device records, from one to most of a session's, so one
+    session can undercount; the run launches the same kernels every time,
+    and the session with the most is the complete one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = run()
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    best, sessions = None, []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = run()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        sessions.append(sum(e.count for e in dev))
+        if best is None or sessions[-1] > sessions[best[0]]:
+            best = (len(sessions) - 1, dev, out)
+    return best[1], best[2], sessions
+
+
+def _profile(run):
+    """``run()`` (which returns its wall seconds) under torch.profiler, from
+    the most complete of three sessions (_device_events): its wall time,
+    the device time its kernels sum to, the idle share, how many kernels it
+    launched, how many of them were each of the port's kernels (device
+    kernels whose name holds the kernel's), and the eight that took the
+    most time."""
+    dev, wall, sessions = _device_events(run)
     busy_us = sum(getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0)) for e in dev)
     top = sorted(dev, key=lambda e: -getattr(e, "self_device_time_total", 0))[:8]
@@ -586,6 +652,7 @@ def _profile(run):
             "device_busy_ms": busy_us / 1e3 if dev else None,
             "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3) if dev else None,
             "kernels": sum(e.count for e in dev),
+            "profile_sessions_kernels": sessions,
             "port_kernels": {name: sum(e.count for e in dev if name in e.key)
                              for name in ("flash_attention", "flash_decode",
                                           "ssd_")},

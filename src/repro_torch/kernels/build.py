@@ -6,8 +6,9 @@ first use, into ``build/repro_torch_kernels/`` at the repo root:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused. A failed build raises.
+The file name carries a hash of the source, of the shared headers
+(``csrc/*.cuh``) and of the flags, so an edited source or header is rebuilt
+and an unchanged one is reused. A failed build raises.
 Nothing here runs at import time: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -37,23 +38,31 @@ def nvcc_path() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
+    key = hashlib.sha256(src + " ".join(_flags(defines)).encode()
+                         ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: Tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists. The
     compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    is kept beside the library as ``.log``."""
-    so = library_path(name)
+    is kept beside the library as ``.log``. ``defines`` (``NAME=value``)
+    build a variant of the source for a measurement; the port's own calls
+    give none."""
+    so = library_path(name, defines)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *_flags(defines), "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

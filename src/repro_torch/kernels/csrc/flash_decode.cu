@@ -73,6 +73,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -91,20 +93,6 @@ __device__ __forceinline__ float warp_max(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // All blocks of the cluster call this with their partial (m_s[g], l_s[g],
@@ -145,11 +133,6 @@ __device__ void cluster_merge(float* m_s, float* l_s, float* part, int ldp, floa
 }
 
 // ------------------------------------------------------------------ bf16 path
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -241,16 +224,13 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q, int64_t q_sb, int64_t q_s
     uint8_t* kd = ring + (it % NST) * Gm::STAGE;
     uint8_t* vd = kd + TILE * LDB;
     if (tid < n_t)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(static_cast<uint32_t>(
-                       __cvta_generic_to_shared(kps + (it % NST) * TILE + tid))),
-                   "l"(kpos + t0 + tid)
-                   : "memory");
+      cp_async4(smem_u32(kps + (it % NST) * TILE + tid), kpos + t0 + tid);
     for (int e = tid; e < TILE * CPR; e += THREADS) {
       const int t = e / CPR, c = e - t * CPR;
       if (c >= chunks) continue;
       if (t < n_t) {
-        cp_async16(kd + t * LDB + c * 16, kb + (int64_t)(t0 + t) * k_ss + c * 8);
-        cp_async16(vd + t * LDB + c * 16, vb + (int64_t)(t0 + t) * v_ss + c * 8);
+        cp_async16(smem_u32(kd + t * LDB + c * 16), kb + (int64_t)(t0 + t) * k_ss + c * 8);
+        cp_async16(smem_u32(vd + t * LDB + c * 16), vb + (int64_t)(t0 + t) * v_ss + c * 8);
       } else {
         *reinterpret_cast<uint4*>(kd + t * LDB + c * 16) = make_uint4(0, 0, 0, 0);
         *reinterpret_cast<uint4*>(vd + t * LDB + c * 16) = make_uint4(0, 0, 0, 0);
@@ -480,8 +460,8 @@ flash_decode_f32(const float* __restrict__ q, int64_t q_sb, int64_t q_sh,
       uint8_t* kdst = kd + t * ldb + c * 16;
       uint8_t* vdst = vd + t * ldb + c * 16;
       if (t < n_t) {
-        cp_async16(kdst, kb + (int64_t)(t0 + t) * k_ss + c * CH);
-        cp_async16(vdst, vb + (int64_t)(t0 + t) * v_ss + c * CH);
+        cp_async16(smem_u32(kdst), kb + (int64_t)(t0 + t) * k_ss + c * CH);
+        cp_async16(smem_u32(vdst), vb + (int64_t)(t0 + t) * v_ss + c * CH);
       } else {
         *reinterpret_cast<uint4*>(kdst) = make_uint4(0, 0, 0, 0);
         *reinterpret_cast<uint4*>(vdst) = make_uint4(0, 0, 0, 0);

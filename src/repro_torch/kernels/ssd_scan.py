@@ -5,7 +5,10 @@ On a CUDA tensor :func:`ssd_scan` launches the hand-written kernels in
 ``csrc/ssd_scan.cu`` (chunk states, a short pass over the chunks, then the
 outputs; see the source); on a CPU tensor it runs :func:`ssd_scan_plain`,
 the port of ``repro/models/ssm.py::ssd_reference``. Any other device
-raises.
+raises. The kernels are chosen by dtype: bfloat16 (the models' type) runs
+every product on the tensor cores (wgmma), with the head-independent
+scores C·Bᵀ computed once per group of heads; float32 (the parity cases)
+runs the CUDA-core kernels.
 
 Layout (the model's, read through strides, no copy): x (B, L, H, P);
 dt (B, L, H) f32; a (H,) f32 (negative); b, c (B, L, N), shared by all
@@ -123,11 +126,32 @@ def _check(x, dt, a, b, c, Q, limits):
                          "contiguous")
     if not a.is_contiguous():
         raise ValueError("ssd_scan: a must be contiguous")
+    if x.dtype == torch.bfloat16:
+        check_layout(x, b, c)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, a, b, c)):
         raise NotImplementedError(
             "ssd_scan: the CUDA kernel has no backward yet (it comes with "
             "the training port); run under torch.no_grad()")
+
+
+def check_layout(x, b, c):
+    """Raise unless the bf16 kernel's 16-byte copies can read x, b and c as
+    they are: P and N multiples of 8, each base 16-byte aligned and every
+    stride of a dim longer than one a multiple of 8 elements."""
+    P, N = x.shape[-1], b.shape[-1]
+    if P % 8 or N % 8:
+        raise ValueError(f"ssd_scan: bf16 needs P and N multiples of 8, got "
+                         f"P={P}, N={N}")
+    for name, t in (("x", x), ("b", b), ("c", c)):
+        if t.data_ptr() % 16 or any(t.stride(i) % 8
+                                    for i in range(t.dim() - 1)
+                                    if t.shape[i] > 1):
+            raise ValueError(
+                f"ssd_scan: {name} {tuple(t.shape)} with strides "
+                f"{t.stride()} cannot be read with 16-byte copies: the base "
+                f"must be 16-byte aligned and every stride a multiple of 8 "
+                f"elements")
 
 
 def ssd_scan(x, dt, a, b, c, *, chunk: int):
@@ -150,8 +174,10 @@ def ssd_scan(x, dt, a, b, c, *, chunk: int):
     dev = x.device
     y = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-    chunk_state = torch.empty((B * H * nc * P * N,), dtype=torch.float32,
-                              device=dev)
+    # the chunks' own states; for bf16 also the incoming states as two bf16
+    # parts (see the source)
+    n_scratch = (2 if x.dtype == torch.bfloat16 else 1) * B * H * nc * P * N
+    chunk_state = torch.empty((n_scratch,), dtype=torch.float32, device=dev)
     tot = torch.empty((B * H * nc,), dtype=torch.float32, device=dev)
     rc = launch(
         _DTYPES[x.dtype],

@@ -8,8 +8,10 @@ Tolerances are the reference's own (tests/test_kernels.py), as
 rtol = atol: 2e-4 in f32 and 2e-2 in bf16 for the attention kernels (one
 bf16 ulp near 1 is 7.8e-3; the Pallas kernels and the oracles round p at
 different points); 3e-4 in f32 and 4e-2 in bf16 for the SSD scan (the
-oracle rounds x·dt and the decay-weighted scores to bf16, the Pallas and
-CUDA kernels keep them in f32).
+oracle rounds x·dt and the decay-weighted scores to bf16, the Pallas kernel
+keeps them in f32; the CUDA bf16 kernel rounds them as the oracle does, and
+also x·dt·exp(cum[-1] - cum) for the chunk states and the incoming state
+into two bf16 parts).
 
 The JAX package is imported inside the parity test, not at the top, so
 that ``-m gpu`` runs this file where JAX is not installed."""
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ops as tops
@@ -274,6 +277,35 @@ def test_ssd_scan_plain_matches_pallas_and_oracle(case, dtype):
                                    rtol=tol, atol=tol)
 
 
+def test_ssd_scan_refuses_layouts_16_byte_copies_cannot_read():
+    """The bf16 kernel's layout check refuses what its 16-byte copies cannot
+    read (a head stride of 40 bytes, P or N not a multiple of 8) and
+    raises: the wrapper has no other way to the card. The packed tensor
+    with the same values passes."""
+    x = torch.zeros((1, 8, 3, 20), dtype=torch.bfloat16)[..., :16]
+    b = torch.zeros((1, 8, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte copies"):
+        ss.check_layout(x, b, b)
+    ss.check_layout(x.contiguous(), b, b)
+    bad_b = torch.zeros((1, 8, 20), dtype=torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError, match="16-byte copies"):
+        ss.check_layout(x.contiguous(), b, bad_b)
+    x12 = torch.zeros((1, 8, 3, 12), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ss.check_layout(x12, b, b)
+
+
+def test_library_name_keys_on_defines():
+    """A variant built with defines (ssd_head_groups.py's head groups) gets
+    a library of its own; the port's library is the one without."""
+    plain = build.library_path("ssd_scan")
+    assert build.library_path("ssd_scan", ()) == plain
+    variant = build.library_path("ssd_scan", ("SSD_HEAD_GROUP=1",))
+    assert variant != plain and variant.parent == plain.parent
+    assert variant.name.startswith("ssd_scan-")
+    assert variant != build.library_path("ssd_scan", ("SSD_HEAD_GROUP=4",))
+
+
 def test_new_kernels_refuse_devices_without_kernel():
     q = torch.zeros((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -314,6 +346,11 @@ def test_flash_attention_cuda_matches_plain(case, dtype):
     (1, 2048, 24, 64, 128, 256),                   # mamba2-130m prefill
     (4, 512, 24, 64, 128, 256),
     (1, 300, 24, 64, 128, 256),                    # ragged full-width
+    (2, 1000, 24, 64, 128, 256),                   # ragged, L % 64 = 40
+    (2, 96, 4, 8, 8, 32),                          # P = 8 with N = 8
+    (2, 512, 24, 64, 128, 64),                     # chunks of 64
+    (1, 640, 8, 64, 128, 128),                     # chunks of 128
+    (2, 64, 8, 16, 16, 16),                        # the mamba2 smoke widths
 ])
 def test_ssd_scan_cuda_matches_plain(case, dtype):
     if not torch.cuda.is_available():
@@ -337,6 +374,66 @@ def test_ssd_scan_cuda_matches_plain(case, dtype):
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    (2, 200, 6, 64, 128, 64),                      # L not a multiple of 64
+    (1, 300, 24, 64, 128, 256),
+    (2, 80, 3, 16, 16, 16),
+])
+def test_ssd_scan_cuda_strided_views(case, dtype):
+    """x, b and c as views into one fused (B, L, H*P + 2N) projection, and x
+    as the transpose of a (B, H, L, P) tensor: read through their strides,
+    no copy, against the plain version on the same views."""
+    _card()
+    B, L, H, P, N, chunk = case
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dty = getattr(torch, dtype)
+    fused = (torch.randn((B, L, H * P + 2 * N), generator=g, device="cuda")
+             * 0.5).to(dty)
+    x = fused[..., :H * P].unflatten(-1, (H, P))
+    b, c = fused[..., H * P:H * P + N], fused[..., H * P + N:]
+    xt = (torch.randn((B, H, L, P), generator=g, device="cuda") * 0.5
+          ).to(dty).transpose(1, 2)
+    dt = torch.rand((B, L, H), generator=g, device="cuda") * 0.19 + 0.01
+    a = -(torch.rand((H,), generator=g, device="cuda") * 1.5 + 0.5)
+    tol = SSD_TOL[dtype]
+    for xx in (x, xt):
+        y, state = ss.ssd_scan(xx, dt, a, b, c, chunk=chunk)
+        want_y, want_s = ss.ssd_scan_plain(xx, dt, a, b, c, chunk=chunk)
+        np.testing.assert_allclose(_np(y), _np(want_y), rtol=tol, atol=tol)
+        np.testing.assert_allclose(_np(state), _np(want_s), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_cuda_odd_head_count():
+    """The bf16 kernel at P=64, N=128 over 23 heads: the last output block
+    holds one head of its group of two. Against the plain version."""
+    _card()
+    x, dt, a, b, c = (torch.from_numpy(t).cuda()
+                      for t in _ssd_inputs((2, 700, 23, 64, 128, 256)))
+    x, b, c = (t.to(torch.bfloat16) for t in (x, b, c))
+    y, state = ss.ssd_scan(x, dt, a, b, c, chunk=256)
+    want_y, want_s = ss.ssd_scan_plain(x, dt, a, b, c, chunk=256)
+    tol = SSD_TOL["bfloat16"]
+    np.testing.assert_allclose(_np(y), _np(want_y), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(state), _np(want_s), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_cuda_raises_on_layout_it_cannot_read():
+    _card()
+    x = torch.zeros((1, 64, 3, 20), dtype=torch.bfloat16, device="cuda")
+    b = torch.zeros((1, 64, 16), dtype=torch.bfloat16, device="cuda")
+    dt = torch.zeros((1, 64, 3), device="cuda")
+    a = -torch.ones((3,), device="cuda")
+    before = ss.ssd_scan.launches
+    with pytest.raises(ValueError, match="16-byte copies"):
+        ss.ssd_scan(x[..., :16], dt, a, b, b, chunk=16)
+    assert ss.ssd_scan.launches == before
 
 
 @pytest.mark.gpu
@@ -412,8 +509,13 @@ def test_kernels_replay_in_a_cuda_graph():
     kc = torch.randn((1, 2064, 2, 64), generator=g, device="cuda").to(bf)
     vc = torch.randn((1, 2064, 2, 64), generator=g, device="cuda").to(bf)
     kpos = torch.arange(2064, dtype=torch.int32, device="cuda")
-    calls = (lambda: fa.flash_attention(q, k, v),
-             lambda: fd.flash_decode(q[:, 0], kc, vc, kpos, 2048))
+    x = torch.randn((1, 600, 24, 64), generator=g, device="cuda").to(bf)
+    dt = torch.rand((1, 600, 24), generator=g, device="cuda") * 0.19 + 0.01
+    a = -(torch.rand((24,), generator=g, device="cuda") * 1.5 + 0.5)
+    bc = torch.randn((1, 600, 128), generator=g, device="cuda").to(bf)
+    calls = (lambda: (fa.flash_attention(q, k, v),),
+             lambda: (fd.flash_decode(q[:, 0], kc, vc, kpos, 2048),),
+             lambda: ss.ssd_scan(x, dt, a, bc, bc.flip(1), chunk=256))
     for fn in calls:
         eager = fn()
         side = torch.cuda.Stream()
@@ -423,9 +525,10 @@ def test_kernels_replay_in_a_cuda_graph():
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            out = fn()
+            outs = fn()
         for _ in range(2):
-            out.zero_()
+            for out in outs:
+                out.zero_()
             graph.replay()
             torch.cuda.synchronize()
-            assert torch.equal(out, eager)
+            assert all(torch.equal(o, e) for o, e in zip(outs, eager))
