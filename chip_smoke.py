@@ -42,6 +42,30 @@ prefill phase one per model):
              then INFER time per bucket and a torch.profiler breakdown, which
              must show 24 flash_decode device kernels per INFER (one per
              layer: a single launch per call).
+6. resnet  — full-width ResNet-50 (the paper's evaluation model; 224x224,
+             256 classes, random weights from a seed) through
+             make_resnet_model: the card's bf16 logits at batch 2 against
+             the port's CPU path, then per bucket INFER time on the host
+             clock and on CUDA events, a torch.profiler breakdown, the
+             bound, LOAD time and peak device bytes; then the paper's Fig. 2
+             on the card: the spread of 500 back-to-back INFERs at batch 1
+             and 200 at batch 16, on the host clock, on CUDA events around
+             the eager forward, and on CUDA events around replays of the
+             forward captured in a CUDA graph (device time alone).
+7. profile — the offline profiler (repro_torch.telemetry.profiler
+             build_store) over full-width ResNet-50, full-width qwen2-0.5b
+             decode (qwen2_full_decode) and the profiler's default_specs();
+             the store is saved, reloaded, checked for every key and printed
+             as Table 1.
+8. runtime — the copied distributed runtime on the card: one Worker over
+             TorchBackend serving both full-width models, seeded from the
+             profile phase's store, behind a WorkerHost that talks to a
+             ControllerServer over a LoopbackLink (every frame encoded and
+             decoded); a RemoteClient on a second link sends an open-loop
+             workload (Poisson, 25 requests/s per model for 1.8 s, SLO 5 s)
+             on a RealClock. Checks at least 90% ok, zero warmup
+             re-measurement, 24 flash_decode launches per qwen2 INFER, and
+             that update_store folds only the run's own samples.
 
 Every torch.profiler reading is taken from the most complete of three
 profiled sessions (the profiler now and then drops a buffer of device
@@ -127,6 +151,19 @@ PREFILL_SHAPES = [(1, 2048), (4, 512)]
 PREFILL_ARCHS = ("qwen2-0.5b", "mamba2-130m")
 N_DECODE = 16
 PREFILL_REPS = 5
+# ResNet-50 at full width: the engine's buckets, INFERs per bucket for the
+# per-bucket times, and the paper's Fig. 2 runs (batch, back-to-back INFERs)
+RESNET_BUCKETS = (1, 2, 4, 8, 16)
+RESNET_IMG = 224
+RESNET_REPS = 30
+FIG2_RUNS = ((1, 500), (16, 200))
+# the profile phase's timed repetitions per bucket (the profiler's default)
+PROFILE_REPS = 3
+# the runtime phase's open-loop workload: Poisson arrivals per model for
+# RUNTIME_S seconds. The loop sends the next request only after the INFER
+# it is blocked in (qwen2's take ~45 ms), so 25 r/s per model sends ~34/s
+# in all: 1.8 s gives about 60 requests
+RUNTIME_RATE, RUNTIME_S = 25.0, 1.8
 
 
 def emit(obj):
@@ -156,10 +193,9 @@ def cuda_ms(fn, iters, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, per_graph=20, replays=20):
-    """Device ms per call: ``per_graph`` calls captured in one CUDA graph,
-    replayed with CUDA events around the replays (no host work between
-    launches)."""
+def _capture(fn, calls=1):
+    """``calls`` calls of ``fn`` captured in one CUDA graph, after three
+    warm-up calls on a side stream."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -169,8 +205,17 @@ def graph_ms(fn, per_graph=20, replays=20):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(per_graph):
+        for _ in range(calls):
             fn()
+    return graph
+
+
+def graph_ms(fn, per_graph=20, replays=20):
+    """Device ms per call: ``per_graph`` calls captured in one CUDA graph,
+    replayed with CUDA events around the replays (no host work between
+    launches)."""
+    import torch
+    graph = _capture(fn, per_graph)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -637,6 +682,21 @@ def _device_events(run, tries=3):
     return best[1], best[2], sessions
 
 
+def _by_kind(dev):
+    """Device ms of profiled kernels by kind, from their names: PyTorch's
+    elementwise kernels, pooling, reductions, and the rest (convolutions,
+    GEMMs and the port's kernels)."""
+    kinds = {"elementwise": 0.0, "pooling": 0.0, "reduction": 0.0,
+             "other": 0.0}
+    for e in dev:
+        kind = next((k for k, word in (("elementwise", "elementwise"),
+                                       ("pooling", "pool"),
+                                       ("reduction", "reduce"))
+                     if word in e.key), "other")
+        kinds[kind] += getattr(e, "self_device_time_total", 0) / 1e3
+    return kinds
+
+
 def _profile(run):
     """``run()`` (which returns its wall seconds) under torch.profiler, from
     the most complete of three sessions (_device_events): its wall time,
@@ -653,6 +713,7 @@ def _profile(run):
             "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3) if dev else None,
             "kernels": sum(e.count for e in dev),
             "profile_sessions_kernels": sessions,
+            "device_ms_by_kind": _by_kind(dev),
             "port_kernels": {name: sum(e.count for e in dev if name in e.key)
                              for name in ("flash_attention", "flash_decode",
                                           "ssd_")},
@@ -888,6 +949,23 @@ def phase_prefill():
     return {arch: _prefill_model(arch) for arch in PREFILL_ARCHS}
 
 
+def _counting_backend(engines):
+    """A TorchBackend over ``engines`` that counts the INFERs it runs, per
+    model (``.infers``)."""
+    from repro_torch.serving.engine import TorchBackend
+
+    class CountingBackend(TorchBackend):
+        def __init__(self, models):
+            super().__init__(models)
+            self.infers = dict.fromkeys(models, 0)
+
+        def exec_duration(self, model, action):
+            self.infers[model.model_id] += 1
+            return super().exec_duration(model, action)
+
+    return CountingBackend(engines)
+
+
 def phase_serve():
     import torch
     from repro_torch.configs import get_config
@@ -897,17 +975,9 @@ def phase_serve():
     from repro_torch.core.scheduler import ClockworkScheduler
     from repro_torch.core.worker import Worker
     from repro_torch.kernels import flash_decode as fd
-    from repro_torch.serving.engine import TorchBackend, make_lm_decode_model
+    from repro_torch.serving.engine import make_lm_decode_model
 
     smoke = _check_against_cpu()
-
-    class CountingBackend(TorchBackend):
-        infers = 0
-
-        def exec_duration(self, model, action):
-            self.infers += 1
-            return super().exec_duration(model, action)
-
     model_id = "qwen2_decode"
     t0 = time.perf_counter()
     jm = make_lm_decode_model(model_id, full=True, batches=BUCKETS,
@@ -924,7 +994,7 @@ def phase_serve():
             _check_logits(jm.forward(jm.device_params, jm.make_input(b)), cfg, b)
     models = {model_id: jm.modeldef()}           # measured INFER profiles
     profiles = jm.seed_profiles()
-    backend = CountingBackend({model_id: jm})
+    backend = _counting_backend({model_id: jm})
     loop = EventLoop(RealClock())
     worker = Worker("w0", loop, backend, models, n_gpus=1)
     controller = Controller(loop, models, ClockworkScheduler(),
@@ -935,7 +1005,7 @@ def phase_serve():
 
     torch.cuda.reset_peak_memory_stats()
     fd.flash_decode.launches = 0                 # the main path's run starts
-    backend.infers = 0
+    backend.infers[model_id] = 0
     n_req = N_REQUESTS
     for _ in range(n_req):
         controller.on_request(Request(model_id=model_id, arrival=loop.now(),
@@ -943,7 +1013,7 @@ def phase_serve():
         loop.run_until(loop.now() + GAP_S)
     loop.run_until(loop.now() + 3.0)
     launches = fd.flash_decode.launches          # ... and ends
-    infers = backend.infers
+    infers = backend.infers[model_id]
 
     ok = [r for r in done if r.status == "ok"]
     lat = [(r.completion - r.arrival) for r in ok]
@@ -983,6 +1053,345 @@ def phase_serve():
     return res
 
 
+def _attn_layers(cfg):
+    """The attention layers of a config (each launches flash_decode once per
+    decode step)."""
+    pattern, n_groups, leftover = cfg.pattern_split()
+    return sum(k in ("attn", "local") for k in pattern * n_groups + leftover)
+
+
+def _resnet_flops(params, img):
+    """FLOP per image of resnet50_forward: 2 per multiply-add of every conv
+    at its output size (XLA's "SAME": ceil(n / stride)) and of the head."""
+    from repro_torch.models.resnet import STAGES
+
+    def conv(w, n):
+        o, i, kh, kw = w.shape
+        return 2 * o * i * kh * kw * n * n
+
+    n = -(-img // 2)
+    flops = conv(params["stem"], n)
+    n = -(-n // 2)                                   # the max-pool
+    for si in range(len(STAGES)):
+        for bi, bp in enumerate(params[f"stage{si}"]):
+            m = -(-n // (2 if (bi == 0 and si > 0) else 1))
+            flops += (conv(bp["conv1"], n) + conv(bp["conv2"], m)
+                      + conv(bp["conv3"], m)
+                      + (conv(bp["proj"], m) if "proj" in bp else 0))
+            n = m
+    return flops + 2 * params["head"].numel()
+
+
+def _resnet_against_cpu(jm):
+    """The card's bf16 logits at batch 2 against the port's CPU path on the
+    same input: within 2e-2 x max(|ref|, 1) of the CPU's f32 run (the bf16
+    weights cast to f32), plus twice the CPU's own bf16-vs-f32 error, as
+    ROADMAP.md section 3 holds gemma2; and finite."""
+    import torch
+    from repro_torch.utils import tree_map
+    x = jm.make_input(2)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        card = jm.forward(jm.device_params, x).float().cpu()
+        cpu16 = jm.forward(jm.host_params, x.cpu()).float()
+        cpu32 = jm.forward(tree_map(lambda t: t.float(), jm.host_params),
+                           x.cpu())
+    if card.shape != (2, 256) or not torch.isfinite(card).all().item():
+        die("resnet", f"card logits {tuple(card.shape)} not (2, 256) or "
+                      f"not finite")
+    err = (card - cpu32).abs().max().item()
+    cpu_err = (cpu16 - cpu32).abs().max().item()
+    bound = 2e-2 * max(cpu32.abs().max().item(), 1.0) + 2 * cpu_err
+    if not err <= bound:
+        die("resnet", f"card vs CPU logits at batch 2: {err} > {bound}")
+    return {"max_abs_err": err, "bound": bound, "cpu_bf16_vs_f32": cpu_err,
+            "ref_max_abs": cpu32.abs().max().item(),
+            "seconds": time.perf_counter() - t0}
+
+
+def _infer_clocks(jm, b):
+    """One INFER of bucket ``b`` timed as TorchModel.run times it (the host
+    clock from a synchronised card to a synchronised card, the input made
+    before), with CUDA events recorded around the same forward: (host ms,
+    event ms)."""
+    import torch
+    x = jm.make_input(b)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    with torch.inference_mode():
+        jm.forward(jm.device_params, x)
+    end.record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def _graph_infer_ms(jm, b, n):
+    """Event ms of ``n`` replays, one at a time, of bucket ``b``'s forward
+    captured once in a CUDA graph: the card's time for the INFER with no
+    host dispatch between its kernels."""
+    import torch
+    x = jm.make_input(b)
+    with torch.inference_mode():
+        graph = _capture(lambda: jm.forward(jm.device_params, x))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms
+
+
+def _fig2(ms):
+    """The paper's Fig. 2 spread: the median and each tail over it."""
+    import numpy as np
+    a = np.asarray(ms, dtype=np.float64)
+    med = float(np.median(a))
+    return {"n": int(a.size), "median_ms": med,
+            "p99_over_median": float(np.percentile(a, 99)) / med,
+            "p99.9_over_median": float(np.percentile(a, 99.9)) / med,
+            "max_over_median": float(a.max()) / med,
+            "cv": float(a.std() / a.mean())}
+
+
+def _conv_weights(params):
+    from repro_torch.utils import tree_leaves
+    return [t for t in tree_leaves(params) if t.dim() == 4]
+
+
+def phase_resnet():
+    """Full-width ResNet-50 through the engine: card vs CPU, then per bucket
+    INFER times on both clocks, a profile, the bound, LOAD and peak bytes,
+    then Fig. 2 on the card."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import make_resnet_model
+    gc.collect()                            # earlier phases' engines
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    jm = make_resnet_model("resnet50", scale=1, img=RESNET_IMG,
+                           batches=RESNET_BUCKETS, seed=0)
+    t_init = time.perf_counter() - t0
+    if not all(t.is_contiguous(memory_format=torch.channels_last)
+               for t in _conv_weights(jm.host_params)):
+        die("resnet", "a conv weight is not channels_last in host memory")
+    load_ms = [s * 1e3 for s in jm.measure_load(reps=5)]
+    if not all(t.is_contiguous(memory_format=torch.channels_last)
+               for t in _conv_weights(jm.device_params)):
+        die("resnet", "a conv weight is not channels_last on the card")
+    jm.compile()
+    cpu_check = _resnet_against_cpu(jm)
+    flops = _resnet_flops(jm.host_params, RESNET_IMG)
+
+    _zero_counts()                          # the ResNet path's run starts
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    buckets = {}
+    for b in RESNET_BUCKETS:
+        clocks = [_infer_clocks(jm, b) for _ in range(RESNET_REPS)]
+        host, dev = zip(*clocks)
+        bytes_moved = (jm.weights_bytes + b * 3 * RESNET_IMG ** 2 * 4
+                       + b * 256 * 2)
+        bound = _bound(bytes_moved, flops * b)
+        buckets[str(b)] = {
+            "host_p50_ms": float(np.median(host)),
+            "event_p50_ms": float(np.median(dev)),
+            **bound, "bound_share_of_event_p50": bound["bound_ms"]
+            / float(np.median(dev)),
+            "profile": _profile_infer(jm, b)}
+    peak = torch.cuda.max_memory_allocated()
+    launches = _read_counts()               # ... and ends: no port kernel
+    fig2 = {}
+    for b, n in FIG2_RUNS:
+        host, dev = zip(*[_infer_clocks(jm, b) for _ in range(n)])
+        fig2[str(b)] = {"host_clock": _fig2(host), "cuda_events": _fig2(dev),
+                        "cuda_graph_replay": _fig2(_graph_infer_ms(jm, b, n))}
+    res = {"phase": "resnet", "ok": True, "model": "resnet50",
+           "img": RESNET_IMG, "classes": 256,
+           "weights_bytes": jm.weights_bytes, "init_s": t_init,
+           "load_ms": load_ms, "load_p50_ms": float(np.median(load_ms)),
+           "gflop_per_image": flops / 1e9, "card_vs_cpu": cpu_check,
+           "port_kernel_launches": launches, "peak_device_bytes": peak,
+           "device_bytes_before_infers": start_bytes,
+           "buckets": buckets, "fig2": fig2}
+    emit(res)
+    jm.unload()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_profile():
+    """The offline profiler over both full-width models and its own
+    default_specs(): a complete store, saved and reloaded, and Table 1."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.serving.engine import make_lm_decode_model, make_resnet_model
+    from repro_torch.telemetry.profile_store import ProfileStore
+    from repro_torch.telemetry.profiler import build_store, default_specs
+    from repro_torch.telemetry.reports import profile_table
+    specs = [("resnet50", lambda: make_resnet_model(
+                 "resnet50", scale=1, img=RESNET_IMG, batches=RESNET_BUCKETS)),
+             ("qwen2_full_decode", lambda: make_lm_decode_model(
+                 "qwen2_full_decode", full=True, batches=BUCKETS, ctx=CTX))]
+    specs += default_specs()
+    buckets = {}                            # model id -> its engine's buckets
+
+    def noting(mk):
+        def make():
+            jm = mk()
+            buckets[jm.model_id] = jm.batches
+            return jm
+        return make
+
+    specs = [(name, noting(mk)) for name, mk in specs]
+    _zero_counts()                          # the profiler's run starts
+    t0 = time.perf_counter()
+    store = build_store(specs, reps=PROFILE_REPS)
+    secs = time.perf_counter() - t0
+    launches = _read_counts()               # ... and ends
+    lm_cfgs = {"qwen2_full_decode": get_config("qwen2-0.5b"),
+               "qwen2_decode": get_smoke_config("qwen2-0.5b"),
+               "mamba2_decode": get_smoke_config("mamba2-130m")}
+    want = {"flash_attention": 0, "ssd_scan": 0, "flash_decode": sum(
+        (PROFILE_REPS + 1) * len(buckets[mid]) * _attn_layers(cfg)
+        for mid, cfg in lm_cfgs.items())}
+    if launches != want:
+        die("profile", f"launches {launches}, expected {want}")
+    path = ROOT / "build" / "chip_smoke_profiles.json"
+    store.save(str(path))
+    loaded = ProfileStore.load(str(path))
+    want_keys = {("INFER", mid, b) for mid, bs in buckets.items() for b in bs}
+    want_keys |= {("LOAD", mid, 1) for mid in buckets}
+    keys = {k for k, _ in loaded.items()}
+    if keys != want_keys or len(buckets) != len(specs):
+        die("profile", f"store keys {sorted(keys)} != {sorted(want_keys)}")
+    res = {"phase": "profile", "ok": True, "models": list(buckets),
+           "entries": len(loaded), "seconds": secs, "reps": PROFILE_REPS,
+           "launches": launches, "store": str(path.relative_to(ROOT)),
+           "table1": profile_table(loaded, batches=RESNET_BUCKETS)}
+    emit(res)
+    return path
+
+
+def phase_runtime(store_path):
+    """Both full-width models served over the copied runtime's wire
+    protocol, seeded from the profile phase's store."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.clock import EventLoop, RealClock
+    from repro_torch.core.controller import Controller
+    from repro_torch.core.scheduler import ClockworkScheduler
+    from repro_torch.core.worker import Worker
+    from repro_torch.runtime.client import RemoteClient
+    from repro_torch.runtime.controller import ControllerServer
+    from repro_torch.runtime.transport import LoopbackLink
+    from repro_torch.runtime.worker import WorkerHost
+    from repro_torch.serving.engine import (make_lm_decode_model,
+                                            make_resnet_model, seed_engines,
+                                            update_store)
+    from repro_torch.serving.workload import build_workload
+    from repro_torch.telemetry.profile_store import ProfileStore
+
+    gc.collect()                            # earlier phases' engines
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engines = {
+        "resnet50": make_resnet_model("resnet50", scale=1, img=RESNET_IMG,
+                                      batches=RESNET_BUCKETS),
+        "qwen2_full_decode": make_lm_decode_model(
+            "qwen2_full_decode", full=True, batches=BUCKETS, ctx=CTX)}
+    store = ProfileStore.load(str(store_path))
+    profiles = seed_engines(engines, store)
+    for e in engines.values():
+        e.compile()                         # untimed: builds, not measures
+    models = {mid: e.modeldef() for mid, e in engines.items()}
+
+    loop = EventLoop(RealClock())
+    controller = Controller(loop, models, ClockworkScheduler(),
+                            action_delay=1e-4)
+    server = ControllerServer(controller)
+    worker_link, client_link = LoopbackLink(loop), LoopbackLink(loop)
+    server.adopt(worker_link.a)
+    backend = _counting_backend(engines)
+    host = WorkerHost(Worker("w0", loop, backend, models, n_gpus=1),
+                      worker_link.b, profiles=profiles)
+    host.register()
+    server.adopt(client_link.a)
+    client = RemoteClient(loop, client_link.b)
+    if not (host.registered and "w0" in controller.workers):
+        die("runtime", "the worker did not register over the loopback link")
+
+    _zero_counts()                          # the runtime's run starts
+    client.attach(build_workload(
+        loop, client.submit, list(engines), kind="open", slo=SLO_S,
+        rate=RUNTIME_RATE, start=loop.now(), duration=RUNTIME_S, seed=0))
+    loop.run_until(loop.now() + RUNTIME_S + 3.0)
+    launches = _read_counts()               # ... and ends
+    summary = client.summary()
+
+    fresh = {mid: e.fresh_profiles() for mid, e in engines.items()}
+    recorded = {}
+    for a in controller.recorder.iter_actions():
+        if a.status == "SUCCESS" and a.actual > 0:
+            key = (a.action_type, a.model_id, a.batch_size)
+            recorded[key] = recorded.get(key, 0) + 1
+    before = {k: p.count for k, p in store.items()}
+    update_store(engines, store, controller)
+    folded_only_fresh = all(
+        p.count == before.get(k, 0) + recorded.get(k, 0)
+        for k, p in store.items()) and not any(fresh.values())
+    host.shutdown()
+    loop.run_until(loop.now() + 0.2)
+
+    per_model = {}
+    for mid in engines:
+        lat = [r.completion - r.arrival for r in controller.completed
+               if r.model_id == mid and r.status == "ok"]
+        per_model[mid] = {
+            "ok": len(lat), "infer_actions": backend.infers[mid],
+            "latency_p50_ms": float(np.median(lat)) * 1e3 if lat else None,
+            "latency_max_ms": max(lat) * 1e3 if lat else None,
+            "learned_infer_ms": {
+                str(b): controller.profiler.estimate("INFER", mid, b) * 1e3
+                for b in engines[mid].batches},
+            "warmup_count": engines[mid].warmup_count}
+    q_infers = backend.infers["qwen2_full_decode"]
+    n_layers = _attn_layers(get_config("qwen2-0.5b"))
+    res = {"phase": "runtime", "client": summary, "models": per_model,
+           "launches": launches, "frames_dropped": sum(
+               l.dropped for l in (worker_link, client_link)),
+           "flash_decode_launches_per_qwen2_infer":
+               launches["flash_decode"] / q_infers if q_infers else None,
+           "update_store_folded_only_fresh": folded_only_fresh,
+           "worker_closed": host.closed,
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    res["ok"] = (summary["sent"] > 0
+                 and summary["goodput"] >= 0.9 * summary["sent"]
+                 and all(m["warmup_count"] == 0 for m in per_model.values())
+                 and q_infers > 0
+                 and launches == {"flash_attention": 0, "ssd_scan": 0,
+                                  "flash_decode": n_layers * q_infers}
+                 and folded_only_fresh and host.closed)
+    emit(res)
+    if not res["ok"]:
+        die("runtime", f"{summary['goodput']}/{summary['sent']} ok, warmup "
+                       f"counts {[m['warmup_count'] for m in per_model.values()]}"
+                       f", launches {launches} for {q_infers} qwen2 INFERs "
+                       f"({n_layers} each), update_store folded only fresh "
+                       f"samples: {folded_only_fresh}, worker closed: "
+                       f"{host.closed}")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1001,6 +1410,8 @@ def main():
     kern = phase_kernels()
     prefill = phase_prefill()
     serve = phase_serve()
+    phase_resnet()
+    runtime = phase_runtime(phase_profile())
     # the decode kernel's times at the shape its main path (serving)
     # launched it at most: its most served bucket, the engine's ctx
     served = serve["exec_by_bucket"]
@@ -1013,6 +1424,7 @@ def main():
         "replaces": "src/repro/kernels/flash_decode.py:67",
         "launches": serve["flash_decode_launches"],
         "launches_per_infer": serve["launches_per_infer"],
+        "launches_runtime": runtime["launches"]["flash_decode"],
         "launches_prefill_path": prefill["qwen2-0.5b"]["launches"][
             "flash_decode"],
         "max_abs_err": kern["flash_decode"]["max_abs_err_serving"],

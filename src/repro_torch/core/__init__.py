@@ -9,6 +9,8 @@
   * scheduler.py  — the Appendix-B strategy-queue scheduler
   * controller.py — centralized controller: worker mirrors, SLO admission,
                     LOAD priorities, fault detection, elasticity
+  * baselines.py  — Clipper-like and INFaaS-like reactive schedulers
+  * scheduler_reference.py — the frozen pre-incremental scheduler
 """
 from repro_torch.core.actions import (Action, ActionType, Request, Result,
                                       ResultStatus)  # noqa: F401

@@ -1,1 +1,2 @@
-"""Serving (port of ``repro.serving``): the real-execution engine."""
+"""Serving (port of ``repro.serving``): the real-execution engine, and
+the simulator and workload generators copied from ``repro``."""

@@ -20,6 +20,8 @@ import torch
 
 from repro_torch.core.worker import ModelDef
 from repro_torch.models import params as pspec
+from repro_torch.models.resnet import (port_layout, resnet50_forward,
+                                       resnet50_spec)
 from repro_torch.telemetry.profile_store import ProfileStore
 from repro_torch.utils import resolve_device, tree_map
 
@@ -215,6 +217,29 @@ def update_store(engines: Dict[str, TorchModel], store: ProfileStore,
     if controller is not None:
         store.update_from_recorder(controller.recorder)
     return store
+
+
+def make_resnet_model(model_id: str, scale: int = 16, img: int = 64,
+                      batches=(1, 2, 4, 8, 16), seed: int = 0,
+                      device="cuda") -> TorchModel:
+    """ResNet-50 (the paper's evaluation model), 256 classes; ``scale=1,
+    img=224`` is full width. Weights are random, drawn on the CPU from
+    ``seed``; the inputs are the reference's draws, in order, from a numpy
+    generator seeded with ``seed``, as NCHW ``channels_last`` tensors on the
+    device. Raises when ``device`` is CUDA and no card is present."""
+    dev = resolve_device(device)
+    spec = resnet50_spec(num_classes=256, scale=scale)
+    params = port_layout(pspec.materialize(
+        spec, torch.Generator().manual_seed(seed)))
+    rng = np.random.default_rng(seed)
+
+    def make_input(b):
+        x = rng.standard_normal((b, img, img, 3)).astype(np.float32)
+        return torch.from_numpy(x).to(dev).permute(0, 3, 1, 2)
+
+    return TorchModel(model_id, resnet50_forward, params, make_input,
+                      weights_bytes=pspec.param_bytes(spec), batches=batches,
+                      device=dev)
 
 
 def make_lm_decode_model(model_id: str, arch: str = "qwen2-0.5b",

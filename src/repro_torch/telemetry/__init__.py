@@ -1,9 +1,11 @@
-"""Telemetry records (copied from ``repro.telemetry``, without the profiler).
+"""Telemetry & profiling (``repro.telemetry``: the records copied, the
+profiler ported).
 
 * events — RequestSpan / ActionRecord / GaugeSample dataclasses
 * recorder — ring-buffer Recorder with JSONL export
 * profile_store — persistent (action, model, batch) -> latency profiles
 * reports — latency breakdowns, prediction-error, Table-1 tables
+* profiler — offline profiler CLI (`python -m repro_torch.telemetry.profiler`)
 """
 from repro_torch.telemetry.events import ActionRecord, GaugeSample, RequestSpan
 from repro_torch.telemetry.profile_store import (LatencyProfile, ProfileStore,

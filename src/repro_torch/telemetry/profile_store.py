@@ -4,7 +4,7 @@ Clockwork seeds its scheduler with latency profiles measured *offline*,
 then refines them online. This module is the persistence layer: a
 versioned JSON file mapping (action_type, model_id, batch) to a latency
 profile (count/median/p99/max seconds). It is written by the offline
-profiler CLI (`python -m repro.telemetry.profiler`) and by shutdown
+profiler CLI (`python -m repro_torch.telemetry.profiler`) and by shutdown
 updates from live telemetry, and read at startup to seed ActionProfiler —
 so repeat runs skip warmup re-measurement entirely.
 

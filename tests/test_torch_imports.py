@@ -1,6 +1,8 @@
 """Guards on the port's boundaries: ``repro_torch`` imports without JAX and
 loads no module of ``repro``; its copied control-plane modules stay equal to
-their originals up to the package prefix; its configs equal the reference's."""
+their originals up to the package prefix (in imports, in ``python -m``
+module paths and in quoted module names, so that no copy imports, spawns or
+names a module of ``repro``); its configs equal the reference's."""
 import dataclasses
 import importlib
 import os
@@ -19,6 +21,11 @@ COPIED = [
     "core/predictor.py", "core/scheduler.py", "core/worker.py",
     "core/controller.py", "telemetry/events.py", "telemetry/recorder.py",
     "telemetry/reports.py", "telemetry/profile_store.py",
+    "core/baselines.py", "core/scheduler_reference.py",
+    "serving/workload.py", "serving/simulator.py",
+    "runtime/__init__.py", "runtime/protocol.py", "runtime/transport.py",
+    "runtime/client.py", "runtime/controller.py", "runtime/worker.py",
+    "runtime/harness.py", "runtime/loadgen.py",
 ]
 ARCHS = ["seamless-m4t-medium", "llava-next-mistral-7b", "mamba2-130m",
          "gemma2-27b", "starcoder2-3b", "phi4-mini-3.8b", "qwen2-0.5b",
@@ -56,11 +63,13 @@ def test_port_imports_without_jax_or_repro():
     _import_with_jax_blocked(_port_modules())
 
 
-# the prefill -> decode slice's modules, each imported on its own
+# the slices' modules, each imported on its own
 SLICE_MODULES = [
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
     "repro_torch.kernels.ops", "repro_torch.models.ssm",
     "repro_torch.models.lm", "repro_torch.distributed.steps",
+    "repro_torch.models.resnet", "repro_torch.telemetry.profiler",
+    "repro_torch.runtime.harness",
 ]
 
 
@@ -84,7 +93,8 @@ def test_no_jax_or_repro_import_in_source(path):
 def test_copied_control_plane_matches_original(rel):
     original = (SRC / "repro" / rel).read_text()
     copy = (SRC / "repro_torch" / rel).read_text()
-    assert copy == original.replace("from repro.", "from repro_torch.")
+    assert copy == re.sub(r'(from |-m\s+|")repro\.', r"\1repro_torch.",
+                          original)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
