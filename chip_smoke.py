@@ -12,36 +12,48 @@ prefill phase one per model):
              kernel's registers, shared memory and spills.
 3. kernels — each kernel against its plain PyTorch version on the card, in
              f32 and bf16: flash_decode over the reference's decode cases, a
-             gemma2-style window + softcap + ring case, the qwen2-0.5b
-             serving shapes and the prefill path's first decode step;
-             flash_attention over the reference's ATTN_CASES, a gemma2-style
-             window + softcap case, D=256, D=80 and the qwen2-0.5b prefill
-             shapes; ssd_scan over the reference's SSD_CASES and the
-             mamba2-130m prefill shapes. The count of
-             HGMMA (tensor-core) instructions in the built flash_attention
-             and ssd_scan libraries (cuobjdump). Then kernel, plain and
-             library times at the main paths' shapes (flash_attention also
-             at phi4-mini's D=128 heads): device time from CUDA-graph replay
-             and time per eager call, with CUDA events, and the achieved
-             TFLOP/s, GB/s and share of the bound; for ssd_scan also, from
-             profiled calls, the device kernels per call, each pass's
-             device time and the head group in use.
-4. prefill — full-width qwen2-0.5b and mamba2-130m (random weights from a
-             seed): make_prefill_step at (B, S) = (1, 2048) and (4, 512), then
-             16 greedy make_decode_step steps from the prefilled cache or
-             state; checks the launches (24 flash_attention per qwen2
-             prefill, 24 ssd_scan per mamba2 prefill, 24 flash_decode per
-             qwen2 decode step), the decode_matches_full_forward identity at
-             full width, and smoke-size prefill -> decode on the card against
-             the CPU; then prefill ms per shape and a torch.profiler
-             breakdown per model.
+             gemma2-style window + softcap + ring case, small cases of the
+             fourth slice's heads (G=10 at D=256 in a ring, a cross cache,
+             G=16), the qwen2-0.5b serving shapes and each prefill path's
+             first decode step; flash_attention over the reference's
+             ATTN_CASES, a gemma2-style window + softcap case, D=256, D=80,
+             small fourth-slice cases (G=10 at D=256 windowed, cross with
+             Sq != Skv, G=16) and every prefill path's shapes (ATTN_TIMED);
+             ssd_scan over the reference's SSD_CASES and the mamba2-130m
+             prefill shapes. The count of HGMMA (tensor-core) instructions
+             in the built flash_attention and ssd_scan libraries
+             (cuobjdump). Then kernel, plain and library times at the main
+             paths' shapes: device time from CUDA-graph replay and time per
+             eager call, with CUDA events, and the achieved TFLOP/s, GB/s
+             and share of the bound; for ssd_scan also, from profiled calls,
+             the device kernels per call, each pass's device time and the
+             head group in use.
+4. prefill — the prefill -> decode path of every family at full width
+             (random weights from a seed): qwen2-0.5b and mamba2-130m at
+             (B, S) = (1, 2048) and (4, 512); recurrentgemma-2b also at
+             (1, 3072), past its 2048 window; qwen3-moe-235b-a22b (depth cut
+             to 4 layers); seamless-m4t-medium (frames, then min(1024, S)
+             decoder tokens); llava-next-mistral-7b at 4096 and 3072 rows,
+             2880 of them image rows. Each make_prefill_step, then 16 greedy
+             make_decode_step steps from the prefilled length; checks the
+             launches (flash_attention once per attention layer, encoder and
+             cross layers included, per prefill; ssd_scan per Mamba2 layer;
+             flash_decode per self and cross attention layer per decode
+             step), the decode_matches_full_forward identity at full width
+             for the decoder-only paths (with qwen3-moe's routing flips
+             against the train forward), and smoke-size prefill -> decode on
+             the card against the CPU (llama4-maverick too, at smoke size
+             only); then prefill ms per shape and a torch.profiler breakdown
+             per model.
 5. serve   — full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936,
              random weights from a seed) served by a Clockwork Controller and
              one Worker over TorchBackend on a RealClock; checks answers and
              that every INFER went through the kernel (24 launches each);
              then INFER time per bucket and a torch.profiler breakdown, which
              must show 24 flash_decode device kernels per INFER (one per
-             layer: a single launch per call).
+             layer: a single launch per call). Then full-width
+             recurrentgemma-2b the same way: 10 requests, every one ok, 8
+             flash_decode launches per INFER (its local layers).
 6. resnet  — full-width ResNet-50 (the paper's evaluation model; 224x224,
              256 classes, random weights from a seed) through
              make_resnet_model: the card's bf16 logits at batch 2 against
@@ -99,6 +111,21 @@ DECODE_CASES = [
     (2, 16, 8, 4, 128, 16, True, 50.0, 10),
     (2, 16, 8, 4, 128, 16, True, 50.0, 40),
     (2, 256, 32, 2, 256, 0, False, 0.0, 200),
+    # the fourth slice's heads, small: recurrentgemma's (G=10, D=256) ring
+    # past its window, a cross cache with every slot live, qwen3-moe's G=16
+    (1, 64, 10, 1, 256, 64, True, 0.0, 100),
+    (2, 48, 16, 16, 64, 0, False, 0.0, 47),
+    (1, 64, 16, 1, 128, 0, False, 0.0, 50),
+]
+# flash_decode at the new paths' first decode step, bf16 (B, S, H, K, D,
+# window, ring, cap, cur): recurrentgemma's 2048-slot ring after the
+# (1, 3072) prompt, seamless's cross cache over 2048 frames, qwen3-moe
+# after (1, 2048), llava after its 4096-row prompt; each also timed
+DECODE_PATH = [
+    (1, 2048, 10, 1, 256, 2048, True, 0.0, 3072),
+    (1, 2048, 16, 16, 64, 0, False, 0.0, 2047),
+    (1, 2064, 64, 4, 128, 0, False, 0.0, 2048),
+    (1, 4112, 32, 8, 128, 0, False, 0.0, 4096),
 ]
 # qwen2-0.5b at the published widths: K=2 kv-heads, G=7, D=64, bf16. ctx 128
 # with cur 64 is what the serving engine runs, at each of its batch buckets;
@@ -129,11 +156,31 @@ ATTN_CASES = [
     (1, 512, 512, 32, 16, 128, True, 128, 50.0),
     (1, 130, 130, 4, 2, 256, True, 0, 0.0),
     (1, 96, 96, 4, 2, 80, True, 0, 0.0),
+    # the fourth slice's heads, small: G=10 at D=256 with a window shorter
+    # than S, cross (non-causal, Sq != Skv both ways), G=16 at D=128
+    (1, 200, 200, 10, 1, 256, True, 64, 0.0),
+    (2, 100, 180, 16, 16, 64, False, 0, 0.0),
+    (1, 180, 100, 16, 16, 64, False, 0, 0.0),
+    (1, 160, 160, 64, 4, 128, True, 0, 0.0),
 ]
-# flash_attention timed at the prefill path's shapes (qwen2-0.5b: H=14,
-# K=2, D=64) and at phi4-mini's D=128 heads (H=24, K=8) at (1, 2048)
-ATTN_TIMED = [(B, S, 14, 2, 64) for B, S in [(1, 2048), (4, 512)]] + [
-    (1, 2048, 24, 8, 128)]
+# flash_attention at the prefill paths' shapes, bf16 (B, Sq, Skv, H, K, D,
+# causal, window), each checked against the plain version and timed:
+# qwen2-0.5b (H=14, K=2, D=64) at (1, 2048) and (4, 512), phi4-mini's D=128
+# heads (H=24, K=8; timed only before this slice), recurrentgemma's local
+# layer (window 2048) at (1, 2048) and past the window at (1, 3072),
+# seamless's encoder (non-causal) and cross layer (1024 tokens over 2048
+# frames), qwen3-moe (G=16) and llava at (1, 4096)
+ATTN_TIMED = [
+    (1, 2048, 2048, 14, 2, 64, True, 0),
+    (4, 512, 512, 14, 2, 64, True, 0),
+    (1, 2048, 2048, 24, 8, 128, True, 0),
+    (1, 2048, 2048, 10, 1, 256, True, 2048),
+    (1, 3072, 3072, 10, 1, 256, True, 2048),
+    (1, 2048, 2048, 16, 16, 64, False, 0),
+    (1, 1024, 2048, 16, 16, 64, False, 0),
+    (1, 2048, 2048, 64, 4, 128, True, 0),
+    (1, 4096, 4096, 32, 8, 128, True, 0),
+]
 # tests/test_kernels.py::SSD_CASES (B, L, H, P, N, chunk); L=50 is ragged
 SSD_CASES = [(2, 64, 3, 16, 8, 16), (1, 50, 2, 8, 16, 16),
              (1, 128, 4, 32, 16, 32)]
@@ -144,13 +191,37 @@ SSD_CASES = [(2, 64, 3, 16, 8, 16), (1, 50, 2, 8, 16, 16),
 # operand x*dt*to_end to bf16 (the plain version takes that product in f32)
 # and carries S_in into the inter-chunk product as two bf16 parts.
 SSD_TOL = {"float32": 3e-4, "bfloat16": 4e-2}
-# the prefill path: (B, S) for qwen2-0.5b (bf16, H=14, K=2, D=64, causal)
-# and mamba2-130m (bf16, H=24, P=64, N=128, chunk 256), each followed by
-# N_DECODE greedy decode steps
+# the prefill paths, each shape followed by N_DECODE greedy decode steps:
+# arch -> (B, S) of the reference's configs/shapes.py::prefill_inputs rule
+# (S the prompt; seamless: S frames and min(1024, S) tokens; llava: S rows
+# in all, img_tokens of them image rows), timed PREFILL_REPS times each.
+# qwen2-0.5b (bf16, H=14, K=2, D=64, causal) and mamba2-130m (bf16, H=24,
+# P=64, N=128, chunk 256) draw their weights on the host, the others on the
+# card. qwen3-moe runs at full width with its depth cut to MOE_LAYERS of 94
+# (one layer's 128 experts are 4.8 GB in bf16).
 PREFILL_SHAPES = [(1, 2048), (4, 512)]
-PREFILL_ARCHS = ("qwen2-0.5b", "mamba2-130m")
+PREFILL_PATHS = {
+    "qwen2-0.5b": PREFILL_SHAPES,
+    "mamba2-130m": PREFILL_SHAPES,
+    "recurrentgemma-2b": PREFILL_SHAPES + [(1, 3072)],
+    "qwen3-moe-235b-a22b": PREFILL_SHAPES,
+    "seamless-m4t-medium": PREFILL_SHAPES,
+    "llava-next-mistral-7b": [(1, 4096), (2, 3072)],
+}
+HOST_DRAWN = ("qwen2-0.5b", "mamba2-130m")
+MOE_LAYERS = 4
+ENCDEC_PRIME = 1024
+# the full-width identity (prefill vs train, decode vs train) is held for the
+# decoder-only paths; the reference holds none for enc-dec or VLM input
+IDENTITY_ARCHS = ("qwen2-0.5b", "mamba2-130m", "recurrentgemma-2b",
+                  "qwen3-moe-235b-a22b")
+# card vs CPU at smoke size: every prefill path, and llama4-maverick (one
+# full-width layer is 32 GB: its shared expert runs here only)
+SMOKE_ARCHS = tuple(PREFILL_PATHS) + ("llama4-maverick-400b-a17b",)
 N_DECODE = 16
-PREFILL_REPS = 5
+PREFILL_REPS = {"qwen2-0.5b": 5, "mamba2-130m": 5}     # 3 for the others
+# the RG-LRU hybrid served as qwen2-0.5b is: requests and sweep INFERs
+RG_ARCH, RG_REQUESTS, RG_SWEEP = "recurrentgemma-2b", 10, 20
 # ResNet-50 at full width: the engine's buckets, INFERs per bucket for the
 # per-bucket times, and the paper's Fig. 2 runs (batch, back-to-back INFERs)
 RESNET_BUCKETS = (1, 2, 4, 8, 16)
@@ -319,36 +390,40 @@ def _timed(kernel, plain, library):
     return times
 
 
-def _time_shape(B, S, cur):
-    """Kernel, plain and SDPA times at one qwen2-0.5b serving shape."""
+def _time_decode(case):
+    """Kernel, plain and SDPA times of flash_decode at one bf16 case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
-    K, G, D = 2, 7, 64
-    H = K * G
-    case = (B, S, H, K, D, 0, False, 0.0, cur)
+    B, S, H, K, D, window, ring, cap, cur = case
+    G = H // K
     q, k, v, kpos = _case_tensors(case, torch.bfloat16, seed=1)
-    kernel = lambda: fd.flash_decode(q, k, v, kpos, cur)           # noqa: E731
-    plain = lambda: fd.flash_decode_plain(q, k, v, kpos, cur)      # noqa: E731
-    # yardstick only: one library call computing the same function
+    kw = dict(window=window, cap=cap)
+    kernel = lambda: fd.flash_decode(q, k, v, kpos, cur, **kw)      # noqa: E731
+    plain = lambda: fd.flash_decode_plain(q, k, v, kpos, cur, **kw)  # noqa: E731
+    # yardstick only: one library call computing the same function (no
+    # softcap in any timed case)
     qs = q[:, :, None, :]                                     # (B,H,1,D)
     ks = k.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
     vs = v.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
-    mask = ((kpos >= 0) & (kpos <= cur))[None, None, None, :]
+    live = (kpos >= 0) & (kpos <= cur)
+    if window:
+        live &= kpos > cur - window
+    mask = live[None, None, None, :]
     library = lambda: F.scaled_dot_product_attention(                # noqa: E731
         qs, ks, vs, attn_mask=mask)
     times = _timed(kernel, plain, library)
     lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)[:, :, 0]
-    lib_err = (lib_out.float() - fd.flash_decode(q, k, v, kpos, cur).float()
-               ).abs().max().item()
+    lib_err = (lib_out.float() - kernel().float()).abs().max().item()
     # least time for the same work: each input read once, the output written
-    # once, over the keys this data needs (kpos <= cur)
-    n_keys = int(((kpos >= 0) & (kpos <= cur)).sum().item())
+    # once, over the keys this data needs (the live slots)
+    n_keys = int(live.sum().item())
     bytes_moved = (2 * B * H * D * 2                   # q in, out
                    + 2 * B * n_keys * K * D * 2        # K and V rows
                    + S * 4)                            # kpos
     ops = 4 * B * H * n_keys * D                       # QK^T and PV
     return _rated({"B": B, "S": S, "cur": cur, "K": K, "G": G, "D": D,
+                   "window": window, "ring": ring,
                    "n_split": fd.split_plan(B, K, S, fd._sm_count(q.device)),
                    "dtype": "bfloat16", **times, "library_max_abs_err": lib_err,
                    **_bound(bytes_moved, ops)})
@@ -422,25 +497,45 @@ def _check_ssd(case, dtype):
     return err_y, err_s
 
 
-def _time_attention(B, S, H, K, D):
-    """Kernel, plain and SDPA times at one causal prefill shape."""
+def _attn_mask(Sq, Skv, causal, window):
+    """(Sq, Skv) bool: the pairs flash_attention keeps (positions from 0)."""
+    import torch
+    qpos = torch.arange(Sq, device="cuda")[:, None]
+    kpos = torch.arange(Skv, device="cuda")[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def _time_attention(B, Sq, Skv, H, K, D, causal, window):
+    """Kernel, plain and SDPA times of flash_attention at one bf16 shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    q, k, v = _attn_tensors((B, S, S, H, K, D), torch.bfloat16, seed=1)
+    q, k, v = _attn_tensors((B, Sq, Skv, H, K, D), torch.bfloat16, seed=1)
+    kw = dict(causal=causal, window=window)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # (B, heads, S, D)
-    # yardstick only: one library call computing the same function
+    mask = _attn_mask(Sq, Skv, causal, window)
+    pairs = int(mask.sum().item())           # (q, k) pairs under the mask
+    # yardstick only: one library call computing the same function; a mask
+    # only where is_causal (or none) does not say it
+    plain_causal = causal and Sq == Skv and (not window or window >= Sq)
+    lib_kw = (dict(is_causal=causal) if plain_causal or not (causal or window)
+              else dict(attn_mask=mask))
     library = lambda: F.scaled_dot_product_attention(        # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    times = _timed(lambda: fa.flash_attention(q, k, v),
-                   lambda: fa.flash_attention_plain(q, k, v), library)
+        qt, kt, vt, enable_gqa=True, **lib_kw)
+    times = _timed(lambda: fa.flash_attention(q, k, v, **kw),
+                   lambda: fa.flash_attention_plain(q, k, v, **kw), library)
     lib_err = (library().transpose(1, 2).float()
-               - fa.flash_attention(q, k, v).float()).abs().max().item()
-    pairs = S * (S + 1) // 2                 # (q, k) pairs under the mask
-    bytes_moved = 2 * (B * S * H * D) * 2 + 2 * (B * S * K * D) * 2
+               - fa.flash_attention(q, k, v, **kw).float()).abs().max().item()
+    bytes_moved = 2 * (B * Sq * H * D) * 2 + 2 * (B * Skv * K * D) * 2
     ops = 4 * B * H * D * pairs              # QK^T and PV
-    return _rated({"B": B, "S": S, "H": H, "K": K, "D": D, "causal": True,
-                   "dtype": "bfloat16", **times, "library_max_abs_err": lib_err,
+    return _rated({"B": B, "S": Sq, "Skv": Skv, "H": H, "K": K, "D": D,
+                   "causal": causal, "window": window, "dtype": "bfloat16",
+                   **times, "library_max_abs_err": lib_err,
                    **_bound(bytes_moved, ops)})
 
 
@@ -524,12 +619,16 @@ def phase_kernels():
     for B, S, cur in SERVE_SHAPES:
         serve_errs.append(_check_case((B, S, 14, 2, 64, 0, False, 0.0, cur),
                                       "bfloat16"))
-    shapes = [_time_shape(B, S, cur) for B, S, cur in SERVE_SHAPES]
+    path_errs = [_check_case(case, "bfloat16") for case in DECODE_PATH]
+    shapes = [_time_decode((B, S, 14, 2, 64, 0, False, 0.0, cur))
+              for B, S, cur in SERVE_SHAPES]
     res["flash_decode"] = {
         "phase": "kernels", "ok": True, "kernel": "flash_decode",
-        "cases_checked": len(errs) + len(serve_errs),
+        "cases_checked": len(errs) + len(serve_errs) + len(path_errs),
         "max_abs_err_cases": max(errs), "max_abs_err_serving": max(serve_errs),
-        "tolerance": TOL, "shapes": shapes}
+        "max_abs_err_path": max(path_errs),
+        "tolerance": TOL, "shapes": shapes,
+        "path_shapes": [_time_decode(case) for case in DECODE_PATH]}
 
     hgmma = {name: _hgmma_count(name) for name in ("flash_attention",
                                                     "ssd_scan")}
@@ -539,8 +638,8 @@ def phase_kernels():
                            f"its bf16 kernel does not run on the tensor cores")
     errs = [_check_attention(c, d) for c in ATTN_CASES
             for d in ("float32", "bfloat16")]
-    path_errs = [_check_attention((B, S, S, 14, 2, 64, True, 0, 0.0),
-                                  "bfloat16") for B, S in PREFILL_SHAPES]
+    path_errs = [_check_attention(shape + (0.0,), "bfloat16")
+                 for shape in ATTN_TIMED]
     res["flash_attention"] = {
         "phase": "kernels", "ok": True, "kernel": "flash_attention",
         "cases_checked": len(errs) + len(path_errs),
@@ -744,13 +843,35 @@ def _read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
 
 
+def _inputs(cfg, B, S, gen):
+    """A prefill batch on the host by the reference's
+    configs/shapes.py::prefill_inputs rule (frames and image rows in bf16 at
+    the embedding table's std, d_model**-0.5), drawn from ``gen``, and the
+    length decode continues at (image rows included)."""
+    import torch
+    d = cfg.d_model
+    rows = lambda n: (torch.randn((B, n, d), generator=gen)    # noqa: E731
+                      * d ** -0.5).to(torch.bfloat16)
+    batch, n_tok = {}, S
+    if cfg.is_encdec:
+        n_tok = min(ENCDEC_PRIME, S)
+        batch["frames"] = rows(S)
+    elif cfg.modality == "image_patches":
+        n_tok = S - cfg.img_tokens
+        batch["image_embeds"] = rows(cfg.img_tokens)
+    batch["tokens"] = torch.randint(0, cfg.vocab_size, (B, n_tok),
+                                    generator=gen)
+    return batch, S if cfg.modality == "image_patches" else n_tok
+
+
 def _prefill_smoke_against_cpu(arch):
-    """Smoke-size prefill (B=2, S=24, 32 slots) then two decode steps, on
-    the card (kernels) and on the CPU (plain versions), same weights and
-    tokens. The logits of each step are held to tests/test_torch_prefill.py's
-    bounds, with the CPU run as the reference: 1e-4 x max(|ref|, 1) in f32;
-    in bf16 2e-2 x max(|ref|, 1) plus twice the CPU run's own bf16-vs-f32
-    error."""
+    """Smoke-size prefill (B=2, S=24: seamless 24 frames and tokens, llava
+    24 rows of which 8 image rows; 8 more cache slots) then two decode
+    steps, on the card (kernels) and on the CPU (plain versions), same
+    weights and inputs. The logits of each step are held to
+    tests/test_torch_prefill.py's bounds, with the CPU run as the
+    reference: 1e-4 x max(|ref|, 1) in f32; in bf16 2e-2 x max(|ref|, 1)
+    plus twice the CPU run's own bf16-vs-f32 error."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.registry import get_bundle
@@ -759,20 +880,21 @@ def _prefill_smoke_against_cpu(arch):
     bundle = get_bundle(cfg)
     gen = torch.Generator().manual_seed(2)
     params0 = bundle.init(gen)
-    toks = torch.randint(0, cfg.vocab_size, (2, 26), generator=gen)
-    V, S = cfg.vocab_size, 24
+    batch, start = _inputs(cfg, 2, 24, gen)
+    dec = torch.randint(0, cfg.vocab_size, (2, 2), generator=gen)
+    V = cfg.vocab_size
 
     def run(dev, dtype):
-        p = tree_map(lambda t: t.to(dev, copy=True).to(dtype)
-                     if t.dtype == torch.bfloat16 else t.to(dev, copy=True),
-                     params0)
+        cast = lambda t: (t.to(dev, copy=True).to(dtype)      # noqa: E731
+                          if t.dtype == torch.bfloat16 else t.to(dev, copy=True))
+        p = tree_map(cast, params0)
         with torch.no_grad():
-            logits, cache = bundle.prefill(p, {"tokens": toks[:, :S].to(dev)},
-                                           cache_len=32)
+            logits, cache = bundle.prefill(p, tree_map(cast, batch),
+                                           cache_len=start + 8)
             steps = [logits]
             for i in range(2):
                 logits, cache = bundle.decode(
-                    p, cache, toks[:, S + i:S + i + 1].to(dev), S + i)
+                    p, cache, dec[:, i:i + 1].to(dev), start + i)
                 steps.append(logits)
         return [t[..., :V].float().cpu() for t in steps]
 
@@ -823,47 +945,109 @@ def _conditioned(params, cfg):
             "leftover": tuple(block(p) for p in params["leftover"])}
 
 
+def _routed(run, rows):
+    """``run()`` with every MoE layer's router probabilities recorded at
+    sequence positions ``rows`` of batch row 0, in layer order: (run's
+    result, [(len(rows), E) f32 per layer])."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.moe import _router
+    seen, apply = [], lm.moe_apply
+
+    def recording(p, cfg, x):
+        seen.append(torch.softmax(_router(p, cfg, x)[2][0, rows], dim=-1))
+        return apply(p, cfg, x)
+
+    lm.moe_apply = recording
+    try:
+        return run(), seen
+    finally:
+        lm.moe_apply = apply
+
+
+def _flips(ref, got, k):
+    """Layers where ``got``'s top-k experts differ from ``ref``'s (one row
+    each): the experts, and ref's margin between its k-th and (k+1)-th
+    probability."""
+    out = []
+    for layer, (r, g) in enumerate(zip(ref, got)):
+        ro = r.argsort(descending=True, stable=True)
+        go = g.argsort(descending=True, stable=True)
+        if set(ro[:k].tolist()) != set(go[:k].tolist()):
+            out.append({"layer": layer, "ref_experts": ro[:k].tolist(),
+                        "experts": go[:k].tolist(),
+                        "ref_margin": (r[ro[k - 1]] - r[ro[k]]).item(),
+                        "max_prob_diff": (r - g).abs().max().item()})
+    return out
+
+
 def _identity_errors(bundle, params, B, S):
     """(prefill vs train, decode vs train) relative errors of
     tests/test_models_smoke.py::test_decode_matches_full_forward: prefill(S)
-    + decode(S) against the train-mode forward over S+1 tokens."""
+    + decode(S) against the train-mode forward over S+1 tokens; and for a
+    MoE model the layers whose top-k experts differ from the train
+    forward's at the same position."""
     import torch
     cfg = bundle.cfg
     g = torch.Generator().manual_seed(3)
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g).cuda()
     V = cfg.vocab_size
+    route = _routed if cfg.moe is not None else (
+        lambda run, rows: (run(), []))
     with torch.no_grad():
-        full = bundle.train_logits(params, {"tokens": toks})
+        full, r_train = route(lambda: bundle.train_logits(
+            params, {"tokens": toks}), [S - 1, S])
         fref, ref = full[:, S - 1, :V], full[:, S, :V]
         del full
-        plogits, cache = bundle.prefill(params, {"tokens": toks[:, :S]},
-                                        cache_len=S + 8)
-        dlogits, _ = bundle.decode(params, cache, toks[:, S:S + 1], S)
+        (plogits, cache), r_pre = route(lambda: bundle.prefill(
+            params, {"tokens": toks[:, :S]}, cache_len=S + 8), [S - 1])
+        (dlogits, _), r_dec = route(lambda: bundle.decode(
+            params, cache, toks[:, S:S + 1], S), [0])
     pref, got = plogits[:, -1, :V], dlogits[:, 0, :V]
     if not all(torch.isfinite(t).all().item() for t in (pref, got)):
         die("prefill", f"{cfg.name}: non-finite prefill or decode logits")
     rel = lambda a, b: ((a - b).abs().max()                      # noqa: E731
                         / b.abs().max().clamp(min=1.0)).item()
-    return rel(pref, fref), rel(got, ref)
+    flips = {}
+    if cfg.moe is not None:
+        k = cfg.moe.top_k
+        flips = {"prefill": _flips([r[0] for r in r_train],
+                                   [r[0] for r in r_pre], k),
+                 "decode": _flips([r[1] for r in r_train],
+                                  [r[0] for r in r_dec], k)}
+    return rel(pref, fref), rel(got, ref), flips
 
 
 def _full_forward_identity(bundle, params, B, S):
     """The identity at full width, held within the test's bounds (prefill
     within 1e-3 relative, decode within 0.06) on the conditioned weights;
     on the reference-init weights it is reported, not held (see
-    _conditioned)."""
-    rel_p, rel_d = _identity_errors(bundle, _conditioned(params, bundle.cfg),
-                                    B, S)
+    _conditioned). For a MoE model, the routing flips against the train
+    forward are reported beside it."""
+    rel_p, rel_d, flips = _identity_errors(
+        bundle, _conditioned(params, bundle.cfg), B, S)
     if not (rel_p < 1e-3 and rel_d < 0.06):
         die("prefill", f"{bundle.cfg.name} full width B={B} S={S}: prefill "
                        f"vs train {rel_p} (< 1e-3), decode vs train {rel_d} "
-                       f"(< 0.06)")
-    ref_p, ref_d = _identity_errors(bundle, params, B, S)
+                       f"(< 0.06); routing flips against train: {flips}")
+    ref_p, ref_d, _ = _identity_errors(bundle, params, B, S)
     return {"B": B, "S": S, "weights": "head projections at 1/sqrt(d_model)",
             "prefill_rel_err": rel_p, "prefill_bound": 1e-3,
             "decode_rel_err": rel_d, "decode_bound": 0.06,
+            **({"routing_flips": flips} if flips else {}),
             "reference_init_not_held": {"prefill_rel_err": ref_p,
                                         "decode_rel_err": ref_d}}
+
+
+def _path_config(arch):
+    """The config a prefill path runs: the published one, qwen3-moe's depth
+    cut to MOE_LAYERS."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS)
+    return cfg
 
 
 def _prefill_model(arch):
@@ -871,45 +1055,50 @@ def _prefill_model(arch):
     checks, prefill times and profile."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.distributed.steps import make_decode_step, make_prefill_step
     from repro_torch.models.registry import get_bundle
-    from repro_torch.utils import tree_map
-    cfg = get_config(arch)
+    from repro_torch.utils import tree_bytes, tree_map
+    cfg = _path_config(arch)
     bundle = get_bundle(cfg)
     t0 = time.perf_counter()
-    params = tree_map(lambda t: t.cuda(),
-                      bundle.init(torch.Generator().manual_seed(0)))
+    if arch in HOST_DRAWN:
+        params = tree_map(lambda t: t.cuda(),
+                          bundle.init(torch.Generator().manual_seed(0)))
+    else:
+        params = bundle.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    L = cfg.num_layers
     pattern, n_groups, leftover = cfg.pattern_split()
     kinds = pattern * n_groups + leftover
     attn_layers = sum(k in ("attn", "local") for k in kinds)
-    ssm_layers = kinds.count("ssm")
+    cross_layers = attn_layers if cfg.is_encdec else 0
+    per_prefill = {"flash_attention": attn_layers + cross_layers
+                   + (cfg.enc_layers if cfg.is_encdec else 0),
+                   "ssd_scan": kinds.count("ssm")}
+    per_step = attn_layers + cross_layers
+    shapes = PREFILL_PATHS[arch]
     decode = make_decode_step(cfg)
     g = torch.Generator().manual_seed(1)
-    batches = {(B, S): {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
-                                                generator=g)}
-               for B, S in PREFILL_SHAPES}
-    steps = {bs: make_prefill_step(cfg, cache_len=bs[1] + N_DECODE)
-             for bs in PREFILL_SHAPES}
+    batches = {bs: _inputs(cfg, *bs, g) for bs in shapes}
+    steps = {bs: make_prefill_step(cfg, cache_len=start + N_DECODE)
+             for bs, (_, start) in batches.items()}
 
     _zero_counts()                          # the main path's run starts
     generated = {}
-    for (B, S), batch in batches.items():
-        tok, cache = steps[(B, S)](params, batch)
+    for bs, (batch, start) in batches.items():
+        tok, cache = steps[bs](params, batch)
         out = [tok]
         for i in range(N_DECODE):
-            tok, cache = decode(params, cache, tok, S + i)
+            tok, cache = decode(params, cache, tok, start + i)
             out.append(tok)
-        generated[(B, S)] = torch.cat(out, dim=1).cpu()
+        generated[bs] = torch.cat(out, dim=1).cpu()
         del cache
     torch.cuda.synchronize()
     launches = _read_counts()               # ... and ends
-    n = len(PREFILL_SHAPES)
-    want = {"flash_attention": attn_layers * n,
-            "ssd_scan": ssm_layers * n,
-            "flash_decode": attn_layers * N_DECODE * n}
+    n = len(shapes)
+    want = {"flash_attention": per_prefill["flash_attention"] * n,
+            "ssd_scan": per_prefill["ssd_scan"] * n,
+            "flash_decode": per_step * N_DECODE * n}
     for (B, S), toks in generated.items():
         if toks.shape != (B, N_DECODE + 1) or not (
                 (toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -919,26 +1108,32 @@ def _prefill_model(arch):
         die("prefill", f"{arch}: launches {launches}, expected {want}")
 
     times = {}
-    for bs, batch in batches.items():
+    for bs, (batch, _) in batches.items():
         secs = [_wall_s(lambda: steps[bs](params, batch))
-                for _ in range(PREFILL_REPS)]
+                for _ in range(PREFILL_REPS.get(arch, 3))]
         times[f"{bs[0]}x{bs[1]}"] = {
             "n": len(secs), "p50_ms": float(np.median(secs)) * 1e3,
             "min_ms": min(secs) * 1e3, "max_ms": max(secs) * 1e3}
-    B, S = PREFILL_SHAPES[0]
-    res = {"phase": "prefill", "ok": True, "model": arch, "layers": L,
-           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "init_s": t_init,
-           "shapes": [list(bs) for bs in PREFILL_SHAPES],
+    B, S = shapes[0]
+    res = {"phase": "prefill", "ok": True, "model": arch,
+           "layers": cfg.num_layers,
+           "encoder_layers": cfg.enc_layers if cfg.is_encdec else 0,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "weights_bytes": tree_bytes(params),
+           "drawn_on": "host" if arch in HOST_DRAWN else "card",
+           "init_s": t_init, "shapes": [list(bs) for bs in shapes],
+           "inputs": {f"{b}x{s}": {k: list(v.shape) for k, v in batch.items()}
+                      for (b, s), (batch, _) in batches.items()},
            "decode_steps": N_DECODE, "launches": launches,
            "launches_expected": want,
-           "launches_per_prefill": {"flash_attention": attn_layers,
-                                    "ssd_scan": ssm_layers},
-           "launches_per_decode_step": {"flash_decode": attn_layers},
-           "prefill_ms": times,
-           "identity": _full_forward_identity(bundle, params, B, S),
-           "smoke_card_vs_cpu": _prefill_smoke_against_cpu(arch),
-           "profile": _profile(lambda: _wall_s(
-               lambda: steps[(B, S)](params, batches[(B, S)])))}
+           "launches_per_prefill": per_prefill,
+           "launches_per_decode_step": {"flash_decode": per_step},
+           "prefill_ms": times}
+    if arch in IDENTITY_ARCHS:
+        res["identity"] = _full_forward_identity(bundle, params, B, S)
+    res["smoke_card_vs_cpu"] = _prefill_smoke_against_cpu(arch)
+    res["profile"] = _profile(lambda: _wall_s(
+        lambda: steps[(B, S)](params, batches[(B, S)][0])))
     emit(res)
     del params
     torch.cuda.empty_cache()
@@ -946,7 +1141,13 @@ def _prefill_model(arch):
 
 
 def phase_prefill():
-    return {arch: _prefill_model(arch) for arch in PREFILL_ARCHS}
+    res = {arch: _prefill_model(arch) for arch in PREFILL_PATHS}
+    for arch in SMOKE_ARCHS:
+        if arch not in res:                 # smoke size only
+            res[arch] = {"phase": "prefill", "ok": True, "model": arch,
+                         "smoke_card_vs_cpu": _prefill_smoke_against_cpu(arch)}
+            emit(res[arch])
+    return res
 
 
 def _counting_backend(engines):
@@ -966,7 +1167,14 @@ def _counting_backend(engines):
     return CountingBackend(engines)
 
 
-def phase_serve():
+def _serve(arch, model_id, n_req, sweep_reps, profiled, need_ok):
+    """One full-width LM decode model (make_lm_decode_model, random weights
+    drawn on the host from seed 0) served by a Clockwork Controller and one
+    Worker over TorchBackend on a RealClock: ``n_req`` requests GAP_S
+    apart, of which the share ``need_ok`` must be ``ok``, each INFER
+    launching flash_decode once per attention layer; then a sweep of
+    ``sweep_reps`` INFERs per bucket and one profiled INFER per bucket in
+    ``profiled``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.actions import Request
@@ -977,14 +1185,12 @@ def phase_serve():
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.serving.engine import make_lm_decode_model
 
-    smoke = _check_against_cpu()
-    model_id = "qwen2_decode"
     t0 = time.perf_counter()
-    jm = make_lm_decode_model(model_id, full=True, batches=BUCKETS,
+    jm = make_lm_decode_model(model_id, arch=arch, full=True, batches=BUCKETS,
                               ctx=CTX, seed=0)
     t_init = time.perf_counter() - t0
-    cfg = get_config("qwen2-0.5b")
-    n_layers = cfg.num_layers
+    cfg = get_config(arch)
+    n_layers = _attn_layers(cfg)
     load_s = jm.load()
     t0 = time.perf_counter()
     jm.compile()
@@ -1006,7 +1212,6 @@ def phase_serve():
     torch.cuda.reset_peak_memory_stats()
     fd.flash_decode.launches = 0                 # the main path's run starts
     backend.infers[model_id] = 0
-    n_req = N_REQUESTS
     for _ in range(n_req):
         controller.on_request(Request(model_id=model_id, arrival=loop.now(),
                                       slo=SLO_S))
@@ -1017,7 +1222,8 @@ def phase_serve():
 
     ok = [r for r in done if r.status == "ok"]
     lat = [(r.completion - r.arrival) for r in ok]
-    res = {"phase": "serve", "model": "qwen2-0.5b", "layers": n_layers,
+    res = {"phase": "serve", "model": arch, "layers": cfg.num_layers,
+           "attention_layers": n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "weights_bytes": jm.weights_bytes, "init_s": t_init,
            "load_s": load_s, "compile_s": t_compile,
@@ -1030,27 +1236,42 @@ def phase_serve():
            "exec_by_bucket": _served_stats(controller, model_id),
            "profiles_ms": {str(b): profiles[("INFER", model_id, b)] * 1e3
                            for b in jm.batches},
-           "peak_device_bytes": torch.cuda.max_memory_allocated(),
-           "smoke_card_vs_cpu": smoke}
-    res["ok"] = (len(ok) >= 0.9 * n_req and infers > 0
+           "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    res["ok"] = (len(ok) >= need_ok * n_req and infers > 0
                  and launches == n_layers * infers)
     # a dedicated sweep for the spread of execution time per bucket (Fig. 2)
-    sweep = jm.measure(reps=SWEEP_REPS)
+    sweep = jm.measure(reps=sweep_reps)
     res["sweep_by_bucket"] = {str(b): _spread(d) for (_, b), d in sweep.items()}
-    res["profiled_infers"] = [_profile_infer(jm, b) for b in (1, 8)]
-    # one flash_decode device kernel per layer and INFER: a single launch
+    res["profiled_infers"] = [_profile_infer(jm, b) for b in profiled]
+    # one flash_decode device kernel per attention layer and INFER: a
+    # single launch
     res["flash_decode_device_kernels_per_infer"] = [
         p["port_kernels"]["flash_decode"] for p in res["profiled_infers"]]
     res["ok"] = res["ok"] and all(
         n == n_layers for n in res["flash_decode_device_kernels_per_infer"])
-    emit(res)
     if not res["ok"]:
-        die("serve", f"{len(ok)}/{n_req} ok, {launches} launches for "
-                     f"{infers} INFERs ({n_layers} per INFER expected), "
+        emit(res)
+        die("serve", f"{arch}: {len(ok)}/{n_req} ok, {launches} launches "
+                     f"for {infers} INFERs ({n_layers} per INFER expected), "
                      f"flash_decode device kernels per profiled INFER "
                      f"{res['flash_decode_device_kernels_per_infer']} "
                      f"({n_layers} expected)")
+    jm.unload()
     return res
+
+
+def phase_serve():
+    """qwen2-0.5b (30 requests, at least 90% ok, as
+    tests/test_system.py's round trip) and the RG-LRU hybrid (every
+    request ok), each alone on the Worker."""
+    smoke = _check_against_cpu()
+    qwen2 = _serve("qwen2-0.5b", "qwen2_decode", N_REQUESTS, SWEEP_REPS,
+                   (1, 8), 0.9)
+    emit({**qwen2, "smoke_card_vs_cpu": smoke})
+    rg = _serve(RG_ARCH, "recurrentgemma_decode", RG_REQUESTS, RG_SWEEP, (1,),
+                1.0)
+    emit(rg)
+    return {"qwen2-0.5b": qwen2, RG_ARCH: rg}
 
 
 def _attn_layers(cfg):
@@ -1412,29 +1633,39 @@ def main():
     serve = phase_serve()
     phase_resnet()
     runtime = phase_runtime(phase_profile())
-    # the decode kernel's times at the shape its main path (serving)
-    # launched it at most: its most served bucket, the engine's ctx
-    served = serve["exec_by_bucket"]
+    # launches of each kernel on every path, each path's counts read from
+    # zero just before it and just after
+    by_path = {name: {} for name in _counters()}
+    for arch, r in prefill.items():
+        for name, n in r.get("launches", {}).items():
+            if n:
+                by_path[name][f"prefill {arch}"] = n
+    for arch, r in serve.items():
+        by_path["flash_decode"][f"serve {arch}"] = r["flash_decode_launches"]
+    by_path["flash_decode"]["runtime"] = runtime["launches"]["flash_decode"]
+    # the decode kernel's times at the shape its first path (serving
+    # qwen2-0.5b) launched it at most: its most served bucket, the
+    # engine's ctx
+    served = serve["qwen2-0.5b"]["exec_by_bucket"]
     main_b = max(served, key=lambda b: served[b]["n"])
     fd_shape = next(s for s in kern["flash_decode"]["shapes"]
                     if (s["B"], s["S"]) == (int(main_b), CTX))
-    fd_line = {
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "eager_ms", "plain_eager_ms", "library_eager_ms")
+    fd = kern["flash_decode"]
+    lines = [{
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/flash_decode.py:67",
-        "launches": serve["flash_decode_launches"],
-        "launches_per_infer": serve["launches_per_infer"],
-        "launches_runtime": runtime["launches"]["flash_decode"],
-        "launches_prefill_path": prefill["qwen2-0.5b"]["launches"][
-            "flash_decode"],
-        "max_abs_err": kern["flash_decode"]["max_abs_err_serving"],
-        **{k: fd_shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "eager_ms",
-                                    "plain_eager_ms", "library_eager_ms")},
+        "launches": sum(by_path["flash_decode"].values()),
+        "launches_by_path": by_path["flash_decode"],
+        "launches_per_infer": {a: r["launches_per_infer"]
+                               for a, r in serve.items()},
+        "max_abs_err": max(fd["max_abs_err_serving"], fd["max_abs_err_path"]),
+        **{k: fd_shape[k] for k in timed},
         "shape": {k: fd_shape[k] for k in ("B", "S", "cur", "K", "G", "D",
-                                           "dtype")}}
-    # the prefill kernels' times at the path's first shape, B=1, S=2048
-    lines = [fd_line]
+                                           "dtype")}}]
+    # the prefill kernels' times at their first path's first shape
     for name, arch, src, replaces, keys in (
             ("flash_attention", "qwen2-0.5b", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:83",
@@ -1447,12 +1678,13 @@ def main():
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces,
-            "launches": prefill[arch]["launches"][name],
-            "launches_per_prefill": prefill[arch]["launches_per_prefill"][name],
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
+            "launches_per_prefill": {
+                a: r["launches_per_prefill"][name] for a, r in prefill.items()
+                if r.get("launches_per_prefill", {}).get(name)},
             "max_abs_err": kern[name]["max_abs_err_path"],
-            **{k: shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms", "eager_ms",
-                                     "plain_eager_ms", "library_eager_ms")},
+            **{k: shape[k] for k in timed},
             **({"library_note": shape["library_note"]}
                if "library_note" in shape else {}),
             "shape": {k: shape[k] for k in keys}})

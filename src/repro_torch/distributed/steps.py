@@ -4,7 +4,7 @@ path. The train step and the mesh-sharded builder come with the training
 and multi-device ports.
 
 Each builder resolves its device once: CUDA by default, never swapped for
-the CPU (``device="cuda"`` without a card raises). A step moves its tokens
+the CPU (``device="cuda"`` without a card raises). A step moves its inputs
 there and runs under ``torch.no_grad()``; the caller's parameters and cache
 must already live on that device.
 """
@@ -20,18 +20,23 @@ from repro_torch.models.registry import get_bundle
 from repro_torch.utils import resolve_device
 
 
+INPUTS = ("tokens", "frames", "image_embeds")
+
+
 def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None,
                       device="cuda"):
-    """prefill_step(params, {"tokens": (B, S)}) -> (next tokens (B, 1)
-    int32, decode-ready cache of ``cache_len`` slots, default S)."""
+    """prefill_step(params, {"tokens": (B, S)} with, for an encoder-decoder
+    model, "frames" (B, Se, d) and, for a VLM, "image_embeds" (B, P, d)) ->
+    (next tokens (B, 1) int32, decode-ready cache of ``cache_len`` slots,
+    default the prefilled length: S, or P + S for a VLM)."""
     bundle = get_bundle(cfg)
     dev = resolve_device(device)
 
     def prefill_step(params, batch):
+        inputs = {k: batch[k].to(dev) for k in INPUTS if k in batch}
         with torch.no_grad():
-            logits, cache = bundle.prefill(
-                params, {"tokens": batch["tokens"].to(dev)},
-                cache_len=cache_len)
+            logits, cache = bundle.prefill(params, inputs,
+                                           cache_len=cache_len)
         return greedy_sample(logits), cache
 
     return prefill_step

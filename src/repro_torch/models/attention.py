@@ -4,10 +4,11 @@
 ``attend_full`` runs its score/softmax/PV block through
 ``kernels.ops.flash_attention`` and ``attend_decode`` through
 ``kernels.ops.flash_decode``: the hand-written CUDA kernels on the card,
-their plain PyTorch versions on the CPU. The reference's mesh logic
-(``constrain``, ``_should_expand_kv``, ``_context_segments``) reduces to the
-single-device case and is dropped. Cross-attention (encoder-decoder models)
-is not ported yet.
+their plain PyTorch versions on the CPU. Cross-attention (encoder-decoder
+models) takes its keys and values from the encoder output, applies no RoPE
+and is never causal; its decode cache is the encoder's K/V, never written.
+The reference's mesh logic (``constrain``, ``_should_expand_kv``,
+``_context_segments``) reduces to the single-device case and is dropped.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.models.params import ParamSpec
 
 
 def attn_spec(cfg: ModelConfig):
+    """The same tree serves self- and cross-attention."""
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = {
         "w_q": ParamSpec((d, h, hd), ("d_model_tp", "heads", "head_dim")),
@@ -35,21 +37,32 @@ def attn_spec(cfg: ModelConfig):
     return s
 
 
-def _project_qkv(p, x, positions, theta: float):
+def _project_qkv(p, x, x_kv=None, positions=None, kv_positions=None,
+                 theta: float = 10000.0, use_rope: bool = True):
+    x_kv = x if x_kv is None else x_kv
     q = torch.einsum("bsd,dhx->bshx", x, p["w_q"])
-    k = torch.einsum("bsd,dkx->bskx", x, p["w_k"])
-    v = torch.einsum("bsd,dkx->bskx", x, p["w_v"])
+    k = torch.einsum("bsd,dkx->bskx", x_kv, p["w_k"])
+    v = torch.einsum("bsd,dkx->bskx", x_kv, p["w_v"])
     if "b_q" in p:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
-    return rope(q, positions, theta), rope(k, positions, theta), v
+    if use_rope:
+        q = rope(q, positions, theta)
+        k = rope(k, kv_positions if kv_positions is not None else positions,
+                 theta)
+    return q, k, v
 
 
 def attend_full(p, cfg: ModelConfig, x, *, kind: str, positions,
+                x_kv=None, kv_positions=None, cross: bool = False,
                 causal: bool = True):
     """Train / prefill attention. x (B,S,d); positions (B,S). Returns
-    (y, (k, v)): k/v post-RoPE, unexpanded, for cache construction."""
-    q, k, v = _project_qkv(p, x, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal,
+    (y, (k, v)): k/v post-RoPE (no RoPE for cross), unexpanded, for cache
+    construction. Cross-attention reads x_kv (B,Skv,d) and is never
+    causal."""
+    q, k, v = _project_qkv(p, x, x_kv=x_kv, positions=positions,
+                           kv_positions=kv_positions, theta=cfg.rope_theta,
+                           use_rope=not cross)
+    out = ops.flash_attention(q, k, v, causal=causal and not cross,
                               window=cfg.window if kind == "local" else 0,
                               cap=cfg.attn_softcap)
     y = torch.einsum("bshx,hxd->bsd", out, p["w_o"])
@@ -95,11 +108,18 @@ def attend_decode(p, cfg: ModelConfig, x, cache, cur_index: int, *,
     """One-token decode. x (B,1,d). Returns (y, cache).
 
     Unlike the reference, which returns a new cache, the new token's K/V are
-    written into ``cache`` in place and the same dict is returned."""
+    written into ``cache`` in place and the same dict is returned. A cross
+    cache (the encoder's K/V) is read whole and never written."""
     if cross:
-        raise NotImplementedError(
-            "cross-attention decode (encoder-decoder models) is not ported "
-            "yet: ROADMAP, modules to port")
+        q = torch.einsum("bsd,dhx->bshx", x, p["w_q"])
+        if "b_q" in p:
+            q = q + p["b_q"]
+        S = cache["k"].shape[1]
+        # every slot live: positions 0..S-1, all at or before S-1
+        kpos = torch.arange(S, dtype=torch.int32, device=x.device)
+        out = ops.flash_decode(q, cache["k"], cache["v"], kpos, S - 1,
+                               cap=cfg.attn_softcap)
+        return torch.einsum("bshx,hxd->bsd", out, p["w_o"]), cache
     B = x.shape[0]
     cur = int(cur_index)
     pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)

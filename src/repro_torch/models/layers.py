@@ -25,6 +25,19 @@ def rmsnorm(p, x, eps: float):
     return (y * (1.0 + p["scale"].float())).to(x.dtype)
 
 
+def layernorm_spec(d: int):
+    return {"scale": ParamSpec((d,), ("d_model",), init="zeros"),
+            "bias": ParamSpec((d,), ("d_model",), init="zeros")}
+
+
+def layernorm(p, x, eps: float):
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * (1.0 + p["scale"].float()) + p["bias"].float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------- MLP
 
 def mlp_spec(cfg: ModelConfig, d_ff: int = 0):

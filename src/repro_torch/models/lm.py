@@ -1,5 +1,7 @@
-"""Decoder-only language model, dense and Mamba2 families (port of
-``repro.models.lm``).
+"""Language model assembled from pattern blocks (port of
+``repro.models.lm``): every family of the reference — dense, Mamba2, the
+RG-LRU hybrid, MoE, and the decoder and encoder of the encoder-decoder and
+VLM models.
 
 The parameter and cache trees are the reference's: the repeating
 ``cfg.pattern`` is stacked along a leading ``layers`` dim under ``"stack"``
@@ -13,9 +15,6 @@ Three modes share one block implementation:
   * ``prefill`` — full attention, returns a decode-ready cache with the
     ``init_cache`` structure
   * ``decode``  — one token against the cache, which is updated in place
-
-RG-LRU blocks, MoE blocks and encoder-decoder / VLM input are not ported
-yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,37 +27,43 @@ from repro_torch.models.attention import (attend_decode, attend_full,
                                           prefill_into_cache)
 from repro_torch.models.layers import (embed, embed_spec, mlp, mlp_spec,
                                        rmsnorm, rmsnorm_spec, unembed)
+from repro_torch.models.moe import moe_apply, moe_spec
+from repro_torch.models.rglru import (rglru_decode, rglru_full, rglru_spec,
+                                      rglru_state)
 from repro_torch.models.ssm import (mamba_decode, mamba_full, mamba_spec,
                                     mamba_state)
 from repro_torch.utils import tree_map
 
 ATTN_KINDS = ("attn", "local")
 MODES = ("train", "prefill", "decode")
-_NOT_PORTED = "is not ported yet (ROADMAP, modules to port)"
-
-
-def _check_kind(cfg: ModelConfig, kind: str):
-    if kind == "rec":
-        raise NotImplementedError(f"RG-LRU blocks {_NOT_PORTED}")
-    if kind not in ATTN_KINDS + ("ssm",):
-        raise ValueError(kind)
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE blocks {_NOT_PORTED}")
 
 
 # ------------------------------------------------------------------ specs
 
-def block_spec(cfg: ModelConfig, kind: str):
-    _check_kind(cfg, kind)
+def block_spec(cfg: ModelConfig, kind: str, cross: bool = False):
     d = cfg.d_model
     s = {"ln1": rmsnorm_spec(d)}
-    if kind == "ssm":
-        s["ssm"] = mamba_spec(cfg)
-    else:
+    if kind in ATTN_KINDS:
         s["attn"] = attn_spec(cfg)
+        if cross:
+            s["ln_x"] = rmsnorm_spec(d)
+            s["cross"] = attn_spec(cfg)
+    elif kind == "ssm":
+        s["ssm"] = mamba_spec(cfg)
+    elif kind == "rec":
+        s["rec"] = rglru_spec(cfg)
+    else:
+        raise ValueError(kind)
     if cfg.post_norms:
         s["ln1_post"] = rmsnorm_spec(d)
-    if cfg.mlp != "none":
+    if cfg.moe is not None:
+        s["ln2"] = rmsnorm_spec(d)
+        s["moe"] = moe_spec(cfg)
+        if cfg.moe.shared_expert:
+            s["shared"] = mlp_spec(cfg, cfg.moe.d_ff_expert)
+        if cfg.post_norms:
+            s["ln2_post"] = rmsnorm_spec(d)
+    elif cfg.mlp != "none":
         s["ln2"] = rmsnorm_spec(d)
         s["mlp"] = mlp_spec(cfg)
         if cfg.post_norms:
@@ -66,14 +71,15 @@ def block_spec(cfg: ModelConfig, kind: str):
     return s
 
 
-def model_spec(cfg: ModelConfig):
+def model_spec(cfg: ModelConfig, cross: bool = False):
     pattern, n_groups, leftover = cfg.pattern_split()
     return {
         "embed": embed_spec(cfg),
         "stack": tuple(
-            pspec.stack_specs(block_spec(cfg, kind), n_groups, "layers")
+            pspec.stack_specs(block_spec(cfg, kind, cross), n_groups,
+                              "layers")
             for kind in pattern),
-        "leftover": tuple(block_spec(cfg, kind) for kind in leftover),
+        "leftover": tuple(block_spec(cfg, kind, cross) for kind in leftover),
         "final_norm": rmsnorm_spec(cfg.d_model),
     }
 
@@ -81,21 +87,30 @@ def model_spec(cfg: ModelConfig):
 # ------------------------------------------------------------------ caches
 
 def _block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                 dtype, device):
-    _check_kind(cfg, kind)
+                 dtype, device, cross_len: int = 0):
+    if kind in ATTN_KINDS:
+        c = {"kv": make_cache(cfg, kind, batch, max_len, dtype, device)}
+        if cross_len:
+            c["cross"] = make_cache(cfg, "attn", batch, cross_len, dtype,
+                                    device)
+        return c
     if kind == "ssm":
         return {"state": mamba_state(cfg, batch, dtype, device)}
-    return {"kv": make_cache(cfg, kind, batch, max_len, dtype, device)}
+    if kind == "rec":
+        return {"state": rglru_state(cfg, batch, dtype, device)}
+    raise ValueError(kind)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", cross_len: int = 0):
     pattern, n_groups, leftover = cfg.pattern_split()
     stack = tuple(
         tree_map(lambda a: a.new_zeros((n_groups,) + tuple(a.shape)),
-                 _block_cache(cfg, kind, batch, max_len, dtype, device))
+                 _block_cache(cfg, kind, batch, max_len, dtype, device,
+                              cross_len))
         for kind in pattern)
-    left = tuple(_block_cache(cfg, kind, batch, max_len, dtype, device)
+    left = tuple(_block_cache(cfg, kind, batch, max_len, dtype, device,
+                              cross_len)
                  for kind in leftover)
     return {"stack": stack, "leftover": left}
 
@@ -103,54 +118,81 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ------------------------------------------------------------------ blocks
 
 def block_apply(p, cfg: ModelConfig, kind: str, x, *, mode: str,
-                positions=None, cur_index=None, cache=None, cache_len=None):
+                positions=None, cur_index=None, cache=None, enc_out=None,
+                enc_positions=None, causal: bool = True, cache_len=None):
     """Apply one block. Returns (x, new_cache): in decode the new cache is
     ``cache``, updated in place; in prefill a new cache; in train None."""
-    _check_kind(cfg, kind)
     eps = cfg.norm_eps
     h = rmsnorm(p["ln1"], x, eps)
-    new_cache = None
-    if kind == "ssm":
+    new_cache = cache if mode == "decode" else {}
+    if kind in ATTN_KINDS:
         if mode == "decode":
-            y, st = mamba_decode(p["ssm"], cfg, h, cache["state"])
-            for name, t in st.items():
-                cache["state"][name].copy_(t)
-            new_cache = cache
+            y, _ = attend_decode(p["attn"], cfg, h, cache["kv"], cur_index,
+                                 kind=kind)
         else:
-            y, st = mamba_full(p["ssm"], cfg, h)
+            y, (k, v) = attend_full(p["attn"], cfg, h, kind=kind,
+                                    positions=positions, causal=causal)
             if mode == "prefill":
-                new_cache = {"state": st}
-    elif mode == "decode":
-        y, _ = attend_decode(p["attn"], cfg, h, cache["kv"], cur_index,
-                             kind=kind)
-        new_cache = cache
+                new_cache["kv"] = prefill_into_cache(
+                    cfg, kind, k, v, max_len=cache_len or k.shape[1])
+    elif kind in ("ssm", "rec"):
+        full, step = ((mamba_full, mamba_decode) if kind == "ssm"
+                      else (rglru_full, rglru_decode))
+        if mode == "decode":
+            y, st = step(p[kind], cfg, h, cache["state"])
+            for name, t in st.items():        # the new state, in place
+                cache["state"][name].copy_(t)
+        else:
+            y, st = full(p[kind], cfg, h)
+            if mode == "prefill":
+                new_cache["state"] = st
     else:
-        y, (k, v) = attend_full(p["attn"], cfg, h, kind=kind,
-                                positions=positions)
-        if mode == "prefill":
-            new_cache = {"kv": prefill_into_cache(
-                cfg, kind, k, v, max_len=cache_len or k.shape[1])}
+        raise ValueError(kind)
     if cfg.post_norms:
         y = rmsnorm(p["ln1_post"], y, eps)
     x = x + y
-    if "mlp" in p:
+
+    if "cross" in p:
+        h = rmsnorm(p["ln_x"], x, eps)
+        if mode == "decode":
+            y, _ = attend_decode(p["cross"], cfg, h, cache["cross"],
+                                 cur_index, kind="attn", cross=True)
+        else:
+            y, (ck, cv) = attend_full(p["cross"], cfg, h, kind="attn",
+                                      positions=positions, x_kv=enc_out,
+                                      kv_positions=enc_positions, cross=True)
+            if mode == "prefill":     # the encoder's K/V, unpadded
+                new_cache["cross"] = {"k": ck, "v": cv}
+        x = x + y
+
+    if "moe" in p:
+        h = rmsnorm(p["ln2"], x, eps)
+        y = moe_apply(p["moe"], cfg, h)
+        if "shared" in p:
+            y = y + mlp(p["shared"], cfg, h)
+        if cfg.post_norms:
+            y = rmsnorm(p["ln2_post"], y, eps)
+        x = x + y
+    elif "mlp" in p:
         h = rmsnorm(p["ln2"], x, eps)
         y = mlp(p["mlp"], cfg, h)
         if cfg.post_norms:
             y = rmsnorm(p["ln2_post"], y, eps)
         x = x + y
-    return x, new_cache
+    return x, (new_cache if mode != "train" else None)
 
 
 # ------------------------------------------------------------------ forward
 
 def _run_stack(params, cfg: ModelConfig, x, *, mode, positions=None,
-               cur_index=None, cache=None, cache_len=None):
+               cur_index=None, cache=None, enc_out=None, enc_positions=None,
+               causal=True, cache_len=None):
     """Returns (x, cache). Prefill stacks the groups' caches along a new
     leading dim (``torch.stack`` copies, so decode can write the stacked
     leaves in place)."""
     pattern, n_groups, leftover = cfg.pattern_split()
     kw = dict(mode=mode, positions=positions, cur_index=cur_index,
+              enc_out=enc_out, enc_positions=enc_positions, causal=causal,
               cache_len=cache_len)
     per_group = [[] for _ in pattern]
     for gi in range(n_groups):
@@ -179,30 +221,56 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def forward(params, cfg: ModelConfig, *, mode: str, tokens, cache=None,
-            cur_index=None, cache_len=None):
+def forward(params, cfg: ModelConfig, *, mode: str, tokens,
+            image_embeds=None, cache=None, cur_index=None, enc_out=None,
+            enc_positions=None, causal: bool = True, cache_len=None):
     """Returns (logits in f32, cache).
 
     * train:   logits over all positions, cache None
     * prefill: logits for the last position only, decode-ready cache
     * decode:  logits for the new token (B, 1, V); ``cache`` updated in
       place and returned
+
+    ``image_embeds`` (B, P, d) go before the token embeddings (VLM input);
+    ``enc_out`` (B, Se, d) is what a decoder's cross-attention reads.
     """
     if mode not in MODES:
         raise ValueError(mode)
     x = embed(params["embed"], cfg, tokens)
+    if image_embeds is not None:
+        img = image_embeds.to(x.dtype)
+        if cfg.scale_embed:
+            # the scale is rounded to x's dtype first, as in embed()
+            img = img * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                                     device=x.device)
+        x = torch.cat([img, x], dim=1)
     B, S = x.shape[:2]
     positions = None
     if mode != "decode":
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=x.device).expand(B, S)
+        positions = seq_positions(B, S, x.device)
     x, cache = _run_stack(params, cfg, x, mode=mode, positions=positions,
-                          cur_index=cur_index, cache=cache,
+                          cur_index=cur_index, cache=cache, enc_out=enc_out,
+                          enc_positions=enc_positions, causal=causal,
                           cache_len=cache_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if mode == "prefill":
         x = x[:, -1:]
     return unembed(params["embed"], cfg, x), cache
+
+
+def seq_positions(B: int, S: int, device):
+    """Positions 0..S-1 of each of B rows, (B, S) int32."""
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+
+
+def encode(params, cfg: ModelConfig, embeds):
+    """Bidirectional encoder pass (encoder-decoder models): embeds (B,S,d)
+    -> (B,S,d), final norm applied."""
+    B, S = embeds.shape[:2]
+    x, _ = _run_stack(params, cfg, embeds, mode="train",
+                      positions=seq_positions(B, S, embeds.device),
+                      causal=False)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def greedy_sample(logits):

@@ -246,10 +246,12 @@ def make_lm_decode_model(model_id: str, arch: str = "qwen2-0.5b",
                          batches=(1, 2, 4, 8), ctx: int = 128, seed: int = 0,
                          full: bool = False, device="cuda") -> TorchModel:
     """LM whose INFER action is one DECODE step (the Clockwork-for-LLMs
-    adaptation, DESIGN.md §2). ``full=True`` takes the published widths
-    (``get_config``); the default is the reference's smoke config. Weights
-    are random, drawn on the CPU from ``seed``. Raises when ``device`` is
-    CUDA and no card is present."""
+    adaptation, DESIGN.md §2), for any decoder-only ``arch`` (an
+    encoder-decoder model would need a cross cache, which the reference's
+    factory does not build either). ``full=True`` takes the published
+    widths (``get_config``); the default is the reference's smoke config.
+    Weights are random, drawn on the CPU from ``seed``. Raises when
+    ``device`` is CUDA and no card is present."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models.registry import get_bundle
     dev = resolve_device(device)

@@ -56,6 +56,20 @@ def test_decode_model_answers_logits():
         for t in torch.utils._pytree.tree_leaves(tm.host_params))
 
 
+def test_decode_model_serves_recurrentgemma():
+    """The factory builds any decoder-only arch: recurrentgemma-2b (smoke)
+    with its RG-LRU state and ring-window cache, one INFER per bucket."""
+    tm = make_lm_decode_model("rg", arch="recurrentgemma-2b", batches=(1, 2),
+                              ctx=32, device="cpu")
+    tm.load()
+    for b in tm.batches:
+        with torch.inference_mode():
+            logits = tm.forward(tm.device_params, tm.make_input(b))
+        assert logits.shape == (b, 1, 512) and torch.isfinite(
+            logits[..., :503]).all()
+        assert tm.run(b) > 0
+
+
 def test_profile_store_written_by_port_loads_in_reference(tmp_path):
     tm = make_lm_decode_model("qwen2_decode", batches=(1, 2), device="cpu")
     store = ProfileStore()

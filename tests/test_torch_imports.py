@@ -69,7 +69,8 @@ SLICE_MODULES = [
     "repro_torch.kernels.ops", "repro_torch.models.ssm",
     "repro_torch.models.lm", "repro_torch.distributed.steps",
     "repro_torch.models.resnet", "repro_torch.telemetry.profiler",
-    "repro_torch.runtime.harness",
+    "repro_torch.runtime.harness", "repro_torch.models.rglru",
+    "repro_torch.models.moe", "repro_torch.models.encdec",
 ]
 
 

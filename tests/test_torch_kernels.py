@@ -41,6 +41,12 @@ CASES = [
     (2, 40, 14, 2, 64, 0, False, 0.0, 33),
     (1, 64, 4, 2, 32, 16, False, 50.0, 60),
     (2, 16, 4, 2, 16, 16, True, 50.0, 40),
+    # the fourth slice's heads: recurrentgemma's local layer (G=10, D=256,
+    # a ring past its window); a cross-decode cache, every slot live (kpos
+    # 0..S-1, cur S-1); qwen3-moe's G=16 at D=128
+    (1, 32, 10, 1, 256, 32, True, 0.0, 45),
+    (2, 24, 4, 4, 64, 0, False, 0.0, 23),
+    (1, 40, 16, 1, 128, 0, False, 0.0, 30),
 ]
 
 
@@ -146,6 +152,9 @@ def test_flash_decode_refuses_devices_without_kernel():
     (1, 4096, 14, 2, 64, 0, False, 0.0, 4000),
     (8, 512, 14, 2, 64, 64, False, 50.0, 500),
     (2, 256, 32, 2, 256, 0, False, 0.0, 200),
+    (1, 2048, 10, 1, 256, 2048, True, 0.0, 3072),  # recurrentgemma's ring
+    (1, 2048, 16, 16, 64, 0, False, 0.0, 2047),    # seamless cross cache
+    (4, 528, 64, 4, 128, 0, False, 0.0, 512),      # qwen3-moe, G=16
 ])
 def test_flash_decode_cuda_matches_plain(case, dtype):
     if not torch.cuda.is_available():
@@ -173,6 +182,13 @@ ATTN_CASES = [
     (2, 48, 48, 4, 1, 64, False, 0, 0.0),
     (1, 96, 96, 8, 8, 128, True, 0, 30.0),
     (1, 33, 33, 2, 1, 16, True, 7, 0.0),
+    # the fourth slice's heads: recurrentgemma's local layer (G=10, D=256,
+    # window shorter than S); a cross layer (non-causal, Sq != Skv, both
+    # ways); qwen3-moe's G=16 at D=128
+    (1, 80, 80, 10, 1, 256, True, 32, 0.0),
+    (2, 40, 72, 4, 4, 64, False, 0, 0.0),
+    (1, 72, 40, 4, 4, 64, False, 0, 0.0),
+    (1, 64, 64, 16, 1, 128, True, 0, 0.0),
 ]
 
 
@@ -323,6 +339,10 @@ def test_new_kernels_refuse_devices_without_kernel():
     (1, 130, 130, 4, 2, 256, True, 0, 0.0),        # D=256: 213 KB of smem
     (1, 2048, 2048, 14, 2, 64, True, 0, 0.0),      # qwen2-0.5b prefill
     (4, 512, 512, 14, 2, 64, True, 0, 0.0),
+    (1, 3072, 3072, 10, 1, 256, True, 2048, 0.0),  # recurrentgemma, S > W
+    (1, 2048, 2048, 16, 16, 64, False, 0, 0.0),    # seamless encoder
+    (1, 1024, 2048, 16, 16, 64, False, 0, 0.0),    # seamless cross
+    (4, 512, 512, 64, 4, 128, True, 0, 0.0),       # qwen3-moe, G=16
 ])
 def test_flash_attention_cuda_matches_plain(case, dtype):
     if not torch.cuda.is_available():

@@ -45,6 +45,21 @@ def test_rmsnorm(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_layernorm(dtype):
+    """An offset mean, so the centring matters; a non-zero scale and bias;
+    the spec's keys, shapes and zero init as the reference's."""
+    r = _rng(4)
+    xj, xt = _pair(r.standard_normal((2, 3, 64)) * 3.0 + 1.5, dtype)
+    pj, pt = {}, {}
+    for name in ("scale", "bias"):
+        pj[name], pt[name] = _pair(r.standard_normal(64) * 0.1, dtype)
+    _close(tl.layernorm(pt, xt, 1e-5), jl.layernorm(pj, xj, 1e-5), dtype)
+    spec, ref = tl.layernorm_spec(64), jl.layernorm_spec(64)
+    assert {k: (tuple(v.shape), v.axes, v.init) for k, v in spec.items()} == \
+        {k: (tuple(v.shape), v.axes, v.init) for k, v in ref.items()}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("theta", [1e4, 1e6])
 def test_rope(dtype, theta):
     r = _rng(1)

@@ -182,10 +182,3 @@ def test_weight_bridge_is_bit_exact():
         np.testing.assert_array_equal(
             tl.view(torch.int16).numpy(),
             np.asarray(jl).view(np.int16))
-
-
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "recurrentgemma-2b",
-                                  "qwen3-moe-235b-a22b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_bundle(torch_cfg(arch)).spec()

@@ -45,7 +45,8 @@ from repro_torch.models.registry import get_bundle as torch_bundle
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DTYPES = ["float32", "bfloat16"]
 ARCHS = ["qwen2-0.5b", "gemma2-27b", "phi4-mini-3.8b", "starcoder2-3b",
-         "mamba2-130m"]
+         "mamba2-130m", "recurrentgemma-2b", "qwen3-moe-235b-a22b",
+         "llama4-maverick-400b-a17b"]
 
 
 def _err(got, want):

@@ -20,25 +20,37 @@ from repro_torch.models import lm as tlm
 from repro_torch.models.params import from_numpy_tree
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-27b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "gemma2-27b", "mamba2-130m",
+                                  "recurrentgemma-2b", "seamless-m4t-medium",
+                                  "llava-next-mistral-7b"])
 def test_steps_greedy_tokens_match_reference(arch):
     """make_prefill_step then four make_decode_step steps, each fed its own
-    greedy token: the same tokens as the JAX steps, in f32."""
+    greedy token: the same tokens as the JAX steps, in f32. The prefill
+    batch carries seamless's frames and llava's image rows; decode
+    continues at the prefilled length (image rows included)."""
     from repro.distributed import steps as jsteps
     jc, tc = jax_cfg(arch), torch_cfg(arch)
     params = jax.tree.map(lambda a: a.astype(jnp.float32),
                           jax_bundle(jc).init(jax.random.PRNGKey(3)))
     pt = from_numpy_tree(jax.tree.map(np.asarray, params), "cpu")
-    toks = np.random.default_rng(4).integers(
-        0, jc.vocab_size, (2, 21)).astype(np.int32)
-    cache_len = 32
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, jc.vocab_size, (2, 21)).astype(np.int32)
+    batch = {"tokens": toks}
+    if jc.is_encdec:
+        batch["frames"] = rng.standard_normal((2, 9, jc.d_model)).astype(
+            np.float32)
+    if jc.modality == "image_patches":
+        batch["image_embeds"] = rng.standard_normal(
+            (2, jc.img_tokens, jc.d_model)).astype(np.float32)
+    start = toks.shape[1] + (jc.img_tokens if "image_embeds" in batch else 0)
+    cache_len = start + 11
     jtok, jcache = jsteps.make_prefill_step(jc, chunk=8, cache_len=cache_len)(
-        params, {"tokens": jnp.asarray(toks)})
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
     ttok, tcache = make_prefill_step(tc, cache_len=cache_len, device="cpu")(
-        pt, {"tokens": torch.from_numpy(toks)})
+        pt, {k: torch.from_numpy(v) for k, v in batch.items()})
     jdecode, tdecode = jsteps.make_decode_step(jc), make_decode_step(
         tc, device="cpu")
-    for cur in range(toks.shape[1], toks.shape[1] + 4):
+    for cur in range(start, start + 4):
         np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
         jtok, jcache = jdecode(params, jcache, jtok, cur)
         ttok, tcache = tdecode(pt, tcache, ttok, cur)
