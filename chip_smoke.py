@@ -19,15 +19,21 @@ prefill phase one per model):
              ATTN_CASES, a gemma2-style window + softcap case, D=256, D=80,
              small fourth-slice cases (G=10 at D=256 windowed, cross with
              Sq != Skv, G=16) and every prefill path's shapes (ATTN_TIMED);
-             ssd_scan over the reference's SSD_CASES and the mamba2-130m
-             prefill shapes. The count of HGMMA (tensor-core) instructions
-             in the built flash_attention and ssd_scan libraries
-             (cuobjdump). Then kernel, plain and library times at the main
-             paths' shapes: device time from CUDA-graph replay and time per
-             eager call, with CUDA events, and the achieved TFLOP/s, GB/s
-             and share of the bound; for ssd_scan also, from profiled calls,
-             the device kernels per call, each pass's device time and the
-             head group in use.
+             the attention backward (flash_attention_bwd: the forward
+             kernel's out and lse, then dq, dk and dv against
+             flash_attention_bwd_plain) over ATTN_CASES in f32 and bf16 and
+             the train path's qwen2-0.5b shapes in bf16; ssd_scan over the
+             reference's SSD_CASES and the mamba2-130m prefill shapes. The
+             count of HGMMA (tensor-core) instructions in the built
+             flash_attention and ssd_scan libraries (cuobjdump). Then
+             kernel, plain and library times at the main paths' shapes:
+             device time from CUDA-graph replay and time per eager call,
+             with CUDA events, and the achieved TFLOP/s, GB/s and share of
+             the bound (for the backward the library is SDPA's backward
+             under autograd, and the forward is timed with lse written and
+             without); for ssd_scan also, from profiled calls, the device
+             kernels per call, each pass's device time and the head group
+             in use.
 4. prefill — the prefill -> decode path of every family at full width
              (random weights from a seed): qwen2-0.5b and mamba2-130m at
              (B, S) = (1, 2048) and (4, 512); recurrentgemma-2b also at
@@ -45,7 +51,26 @@ prefill phase one per model):
              the card against the CPU (llama4-maverick too, at smoke size
              only); then prefill ms per shape and a torch.profiler breakdown
              per model.
-5. serve   — full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936,
+5. train   — full-width qwen2-0.5b training (random weights from seed 0,
+             AdamW, 2 microbatches, remat) through
+             repro_torch.launch.train.train at (B, S) = (8, 256) for 8 steps
+             with a checkpoint every 4, on the seeded synthetic stream;
+             checks the launches per step (flash_attention 96: 24 layers x
+             2 microbatches x forward and remat recompute;
+             flash_attention_bwd 48), then resumes from the step-4
+             checkpoint to the same step-8 loss within 1e-3; reads the
+             gradient norm of the main path's first step on its own
+             weights (under the reference's init the loss does not move in
+             a few steps at full width); then, from the same weights with
+             the head projections at 1/sqrt(d_model), 5 steps on one
+             batch, timed (step ms, tokens/s, peak device memory; the loss
+             must fall by 0.5) and one profiled (device busy, idle share,
+             device time by kind, the largest kernels), 2 steps at
+             (2, 2048), and one smoke-size gemma2-27b train step (window +
+             softcaps, Adafactor) on the card against the CPU: in f32 on
+             the reference's init, and in bf16 on conditioned weights
+             against the CPU's f32 step, every leaf's gradient and weights.
+6. serve   — full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936,
              random weights from a seed) served by a Clockwork Controller and
              one Worker over TorchBackend on a RealClock; checks answers and
              that every INFER went through the kernel (24 launches each);
@@ -54,7 +79,7 @@ prefill phase one per model):
              layer: a single launch per call). Then full-width
              recurrentgemma-2b the same way: 10 requests, every one ok, 8
              flash_decode launches per INFER (its local layers).
-6. resnet  — full-width ResNet-50 (the paper's evaluation model; 224x224,
+7. resnet  — full-width ResNet-50 (the paper's evaluation model; 224x224,
              256 classes, random weights from a seed) through
              make_resnet_model: the card's bf16 logits at batch 2 against
              the port's CPU path, then per bucket INFER time on the host
@@ -64,12 +89,12 @@ prefill phase one per model):
              and 200 at batch 16, on the host clock, on CUDA events around
              the eager forward, and on CUDA events around replays of the
              forward captured in a CUDA graph (device time alone).
-7. profile — the offline profiler (repro_torch.telemetry.profiler
+8. profile — the offline profiler (repro_torch.telemetry.profiler
              build_store) over full-width ResNet-50, full-width qwen2-0.5b
              decode (qwen2_full_decode) and the profiler's default_specs();
              the store is saved, reloaded, checked for every key and printed
              as Table 1.
-8. runtime — the copied distributed runtime on the card: one Worker over
+9. runtime — the copied distributed runtime on the card: one Worker over
              TorchBackend serving both full-width models, seeded from the
              profile phase's store, behind a WorkerHost that talks to a
              ControllerServer over a LoopbackLink (every frame encoded and
@@ -181,6 +206,16 @@ ATTN_TIMED = [
     (1, 2048, 2048, 64, 4, 128, True, 0),
     (1, 4096, 4096, 32, 8, 128, True, 0),
 ]
+# the attention backward (csrc/flash_attention_bwd.cu) against
+# flash_attention_bwd_plain from the same out, lse and dout: ATTN_CASES in
+# f32 and bf16 (window + softcap, D=256, Sq != Skv both ways, G=10 and 16),
+# then bf16 at the train path's shapes with qwen2-0.5b's heads (B, S); dq,
+# dk and dv each within BWD_TOL of its largest element (in bf16 the kernel
+# sums p and ds products in another order than the plain einsums, both
+# from the same bf16-rounded p and ds). Timed at BWD_TIMED.
+BWD_PATH = [(8, 256), (1, 2048), (4, 512), (2, 2048)]
+BWD_TIMED = [(1, 2048), (4, 512)]
+BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # tests/test_kernels.py::SSD_CASES (B, L, H, P, N, chunk); L=50 is ragged
 SSD_CASES = [(2, 64, 3, 16, 8, 16), (1, 50, 2, 8, 16, 16),
              (1, 128, 4, 32, 16, 32)]
@@ -230,6 +265,16 @@ RESNET_REPS = 30
 FIG2_RUNS = ((1, 500), (16, 200))
 # the profile phase's timed repetitions per bucket (the profiler's default)
 PROFILE_REPS = 3
+# the train phase: full-width qwen2-0.5b (AdamW, 2 microbatches, remat)
+# through repro_torch.launch.train.train at (TRAIN_B, TRAIN_S) for
+# TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY, then resumed
+# from the first checkpoint; TRAIN_TIMED steps timed from that checkpoint,
+# and TRAIN_LONG_STEPS at (B, S) = TRAIN_LONG (one 2048-token sequence per
+# microbatch)
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 256, 8, 4
+TRAIN_TIMED = 5
+TRAIN_LONG, TRAIN_LONG_STEPS = (2, 2048), 2
 # the runtime phase's open-loop workload: Poisson arrivals per model for
 # RUNTIME_S seconds. The loop sends the next request only after the INFER
 # it is blocked in (qwen2's take ~45 ms), so 25 r/s per model sends ~34/s
@@ -464,6 +509,97 @@ def _check_attention(case, dtype):
     return err
 
 
+def _bwd_tensors(case, dtype, seed=0):
+    """q, k, v of ``case`` and an output gradient dout, drawn on the card."""
+    import torch
+    q, k, v = _attn_tensors(case, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    return q, k, v, torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+
+
+def _check_attention_bwd(case, dtype):
+    """The forward kernel's out and lse (the train path's), then the
+    backward kernels against flash_attention_bwd_plain from the same out,
+    lse and dout: (max abs error of dq, dk, dv; the largest of their errors
+    relative to each one's largest element). lse is held to the plain
+    version's within the f32 tolerance."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    causal, window, cap = case[6:]
+    kw = dict(causal=causal, window=window, cap=cap)
+    q, k, v, dout = _bwd_tensors(case, getattr(torch, dtype))
+    out, lse = fa._forward(q, k, v, causal, window, cap, want_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    _, want_lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    lse_err, lse_ok = _allclose_err(lse, want_lse, TOL["float32"])
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    abs_err, rel_err = 0.0, 0.0
+    for name, a, w in zip("qkv", got, want):
+        if not torch.isfinite(a).all().item():
+            die("kernels", f"flash_attention_bwd {case} {dtype}: d{name} "
+                           f"non-finite")
+        err = (a.float() - w.float()).abs().max().item()
+        abs_err = max(abs_err, err)
+        rel_err = max(rel_err, err / max(w.float().abs().max().item(), 1e-30))
+    if not (lse_ok and rel_err <= BWD_TOL[dtype]):
+        die("kernels", f"flash_attention_bwd {case} {dtype}: lse err "
+                       f"{lse_err} (tol {TOL['float32']}), grads {rel_err} "
+                       f"of the largest element > {BWD_TOL[dtype]}")
+    return abs_err, rel_err
+
+
+def _time_attention_bwd(B, S):
+    """Backward kernel, plain and SDPA-backward times at one qwen2-0.5b
+    (H=14, K=2, D=64, causal, bf16) train shape; the forward's time with
+    lse written and without, in turns (off, on, on, off)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    H, K, D = 14, 2, 64
+    q, k, v, dout = _bwd_tensors((B, S, S, H, K, D), torch.bfloat16, seed=1)
+    out, lse = fa._forward(q, k, v, True, 0, 0.0, want_lse=True)
+    kw = dict(causal=True)
+    # yardstick only: the backward of one library call computing the same
+    # function, under autograd (the forward outside the timed call). The
+    # autograd engine runs it on the forward's stream, which a CUDA graph
+    # cannot capture, so its time is CUDA events around back-to-back eager
+    # calls (the kernel's eager time beside it)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    dt = dout.transpose(1, 2)
+    library = lambda: torch.autograd.grad(                    # noqa: E731
+        lib_out, (qt, kt, vt), dt, retain_graph=True)
+    times = _timed(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                  **kw),
+                   lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse,
+                                                        dout, **kw),
+                   None)
+    times["library_ms"] = times["library_eager_ms"] = cuda_ms(library, 200)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    lib = library()
+    lib_err = max((a.float() - b.transpose(1, 2).float()).abs().max().item()
+                  for a, b in zip(got, lib))
+    fwd = [graph_ms(lambda: fa._forward(q, k, v, True, 0, 0.0, want_lse=w))
+           for w in (False, True, True, False)]
+    pairs = B * H * S * (S + 1) // 2         # live (q, k) pairs, causal
+    bytes_moved = (4 * B * S * H * D * 2     # q, out, dout in; dq out
+                   + 4 * B * S * K * D * 2   # k, v in; dk, dv out
+                   + B * H * S * 4)          # lse
+    ops = 10 * D * pairs                     # scores, dout.v^T, dv, dk, dq
+    return _rated({"B": B, "S": S, "H": H, "K": K, "D": D, "causal": True,
+                   "dtype": "bfloat16", **times, "library_max_abs_err": lib_err,
+                   "library_note": "backward of F.scaled_dot_product_attention"
+                                   "(enable_gqa=True) under autograd; CUDA "
+                                   "events around eager calls",
+                   "forward_ms_lse_off": (fwd[0] + fwd[3]) / 2,
+                   "forward_ms_lse_on": (fwd[1] + fwd[2]) / 2,
+                   "forward_ms_turns": fwd,
+                   **_bound(bytes_moved, ops)})
+
+
 def _ssd_tensors(case, dtype, seed=0):
     """The reference tests' draws: x, b, c ~ N(0, 0.25), dt ~ U(0.01, 0.2),
     a ~ -U(0.5, 2)."""
@@ -648,6 +784,20 @@ def phase_kernels():
         "hgmma_instructions": hgmma["flash_attention"],
         "shapes": [_time_attention(*shape) for shape in ATTN_TIMED]}
 
+    errs = [_check_attention_bwd(c, d) for c in ATTN_CASES
+            for d in ("float32", "bfloat16")]
+    path_errs = [_check_attention_bwd((B, S, S, 14, 2, 64, True, 0, 0.0),
+                                      "bfloat16") for B, S in BWD_PATH]
+    res["flash_attention_bwd"] = {
+        "phase": "kernels", "ok": True, "kernel": "flash_attention_bwd",
+        "cases_checked": len(errs) + len(path_errs),
+        "max_abs_err_cases": max(e[0] for e in errs),
+        "max_rel_err_cases": max(e[1] for e in errs),
+        "max_abs_err_path": max(e[0] for e in path_errs),
+        "max_rel_err_path": max(e[1] for e in path_errs),
+        "tolerance_of_largest_element": BWD_TOL,
+        "shapes": [_time_attention_bwd(B, S) for B, S in BWD_TIMED]}
+
     errs = [max(_check_ssd(c, d)) for c in SSD_CASES
             for d in ("float32", "bfloat16")]
     path_errs = [_check_ssd((B, L, 24, 64, 128, 256), "bfloat16")
@@ -814,8 +964,8 @@ def _profile(run):
             "profile_sessions_kernels": sessions,
             "device_ms_by_kind": _by_kind(dev),
             "port_kernels": {name: sum(e.count for e in dev if name in e.key)
-                             for name in ("flash_attention", "flash_decode",
-                                          "ssd_")},
+                             for name in ("flash_attention", "attn_bwd",
+                                          "flash_decode", "ssd_")},
             "top_kernels": [{"name": e.key[:60], "count": e.count,
                              "ms": getattr(e, "self_device_time_total", 0) / 1e3}
                             for e in top]}
@@ -831,6 +981,7 @@ def _counters():
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ssd_scan as ss
     return {"flash_attention": fa.flash_attention,
+            "flash_attention_bwd": fa.flash_attention_bwd,
             "flash_decode": fd.flash_decode, "ssd_scan": ss.ssd_scan}
 
 
@@ -1097,6 +1248,7 @@ def _prefill_model(arch):
     launches = _read_counts()               # ... and ends
     n = len(shapes)
     want = {"flash_attention": per_prefill["flash_attention"] * n,
+            "flash_attention_bwd": 0,
             "ssd_scan": per_prefill["ssd_scan"] * n,
             "flash_decode": per_step * N_DECODE * n}
     for (B, S), toks in generated.items():
@@ -1147,6 +1299,260 @@ def phase_prefill():
             res[arch] = {"phase": "prefill", "ok": True, "model": arch,
                          "smoke_card_vs_cpu": _prefill_smoke_against_cpu(arch)}
             emit(res[arch])
+    return res
+
+
+def _train_smoke_against_cpu():
+    """One smoke-size gemma2-27b train step (window 16, attention and final
+    softcaps, Adafactor: the config's optimizer) on the card (both attention
+    kernels) against the same step on the CPU (plain versions), same batch,
+    every leaf's gradient read back through the optimizer's state.
+
+    In f32 (TF32 off), on the reference's init: loss within 1e-4 relative,
+    grad_norm within 1e-3 relative, each leaf's gradient within 3e-4 of its
+    largest element plus 1e-6 of the model's largest (the CPU tests' bound,
+    tests/test_torch_train_dense.py), every updated weight within 1e-5
+    (Adafactor's update is proportional to the gradient, at lr 1e-3).
+
+    In bf16 the step runs on the same weights with the head projections at
+    1/sqrt(d_model) (_conditioned) and is held to the CPU's f32 step on
+    them. On the reference's init the scores are large and the softmax all
+    but one-hot, so bf16 rounding decides which key wins and the CPU's own
+    bf16 gradients lie far from its f32 ones (printed as
+    ``control_reference_init``): no bf16 bound there could tell a fault from
+    rounding. On the conditioned weights the CPU's bf16 step, run as the
+    control, lies a few percent from f32 per leaf (printed as
+    ``control_max_leaf_rel_err``). So: loss within 1e-3 and grad_norm
+    within 1e-2 relative; each leaf's gradient within 5e-2 of the f32
+    gradient's norm (a gradient reversed, dropped or sent to another leaf
+    errs by 100% or more). The updated bf16 weights are held to the
+    optimizer's update of the card's own gradients, recomputed on the CPU
+    from the same weights: within one bf16 spacing (2^-7 of the value; f32
+    arithmetic in another order may round to the neighbouring value). The
+    f32 step cannot stand in for them: bf16 spaces weights more widely than
+    lr, and a gradient element near zero may change sign."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.training.optimizer import Optimizer, get_optimizer
+    from repro_torch.utils import tree_leaves, tree_map
+    cfg = get_smoke_config("gemma2-27b")
+    init = get_bundle(cfg).init(torch.Generator().manual_seed(4))
+    batch = SyntheticLM(cfg, ShapeSpec("t", "train", 32, 4), seed=0).batch(0)
+    inner = get_optimizer(cfg.optimizer)
+
+    def update(grads, state, params, step):     # hands the gradients back
+        new_params, new_state = inner.update(grads, state["opt"], params,
+                                             step)
+        return new_params, {"opt": new_state, "grads": grads}
+
+    opt = Optimizer(inner.name, inner.spec, lambda p: {"opt": inner.init(p)},
+                    update)
+
+    def run(params0, dev, dtype):
+        p = tree_map(lambda t: t.to(dev, dtype, copy=True), params0)
+        newp, state, m = make_train_step(cfg, opt, device=dev)(
+            p, opt.init(p), batch, 0)
+        return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "w": [t.float().cpu() for t in tree_leaves(newp)],
+                "g": [t.float().cpu() for t in tree_leaves(state["grads"])],
+                "grads": tree_map(lambda t: t.cpu(), state["grads"])}
+
+    def scalars(got, ref, tols):
+        return {k: {"cpu": ref[k], "card": got[k],
+                    "err": abs(got[k] - ref[k]), "bound": tol * abs(ref[k])}
+                for k, tol in tols.items()}
+
+    def leaf_rel(a, b):
+        return [((x - y).norm() / y.norm().clamp(min=1e-30)).item()
+                for x, y in zip(a, b)]
+
+    res = {}
+    ref, got = run(init, "cpu", torch.float32), run(init, "cuda",
+                                                    torch.float32)
+    r = scalars(got, ref, {"loss": 1e-4, "grad_norm": 1e-3})
+    top = max(g.abs().max().item() for g in ref["g"])
+    gerr = max(((a - b).abs().max() / (3e-4 * b.abs().max() + 1e-6 * top)
+                ).item() for a, b in zip(got["g"], ref["g"]))
+    werr = max((a - b).abs().max().item() for a, b in zip(got["w"], ref["w"]))
+    r["grads"] = {"max_err_over_bound": gerr}
+    r["weights"] = {"max_abs_err": werr, "bound": 1e-5}
+    r["control_reference_init"] = {"max_leaf_rel_err": max(leaf_rel(
+        run(init, "cpu", torch.bfloat16)["g"], ref["g"]))}
+    res["float32"] = r
+    if not (all(v["err"] <= v["bound"] for k, v in r.items()
+                if k in ("loss", "grad_norm")) and gerr <= 1 and werr <= 1e-5):
+        die("train", f"gemma2-27b smoke train step, card vs CPU, f32: {r}")
+
+    cond = _conditioned(init, cfg)
+    ref = run(cond, "cpu", torch.float32)
+    ctl, got = run(cond, "cpu", torch.bfloat16), run(cond, "cuda",
+                                                     torch.bfloat16)
+    r = scalars(got, ref, {"loss": 1e-3, "grad_norm": 1e-2})
+    g_card, g_ctl = leaf_rel(got["g"], ref["g"]), leaf_rel(ctl["g"], ref["g"])
+    p16 = tree_map(lambda t: t.to(torch.bfloat16, copy=True), cond)
+    want, _ = inner.update(got["grads"], inner.init(p16), p16, 0)
+    w_err = max(((a - b.float()).abs() / (2 ** -7 * b.float().abs())
+                 .clamp(min=1e-30)).max().item()
+                for a, b in zip(got["w"], tree_leaves(want)))
+    r["grads"] = {"max_leaf_rel_err": max(g_card), "bound": 5e-2,
+                  "control_max_leaf_rel_err": max(g_ctl)}
+    r["weights"] = {"max_err_in_bf16_spacings": w_err, "bound": 1.0,
+                    "max_leaf_rel_err_from_f32_step": max(
+                        leaf_rel(got["w"], ref["w"]))}
+    res["bfloat16_conditioned"] = r
+    if not (all(v["err"] <= v["bound"] for k, v in r.items()
+                if k in ("loss", "grad_norm"))
+            and max(g_card) <= 5e-2 and w_err <= 1.0):
+        die("train", f"gemma2-27b smoke train step, card vs CPU's f32, "
+                     f"bf16 on conditioned weights: {r}")
+    return res
+
+
+def phase_train():
+    """Full-width qwen2-0.5b training through the entry point a user calls
+    (repro_torch.launch.train.train), resumed from its first checkpoint;
+    then timed and profiled steps, the (2, 2048) steps and the smoke-size
+    card-vs-CPU check."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.launch.train import microbatch_count, train
+    from repro_torch.models.params import param_count
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.training.optimizer import get_optimizer
+    from repro_torch.utils import tree_map
+    cfg = get_config(TRAIN_ARCH)
+    n_mb = microbatch_count(cfg, TRAIN_B)
+    layers = _attn_layers(cfg)
+    # per step: every attention layer of every microbatch runs the forward
+    # kernel once, and once more when remat recomputes its group in the
+    # backward; the backward kernel once
+    want = {"flash_attention": layers * n_mb * (2 if cfg.remat else 1),
+            "flash_attention_bwd": layers * n_mb, "flash_decode": 0,
+            "ssd_scan": 0}
+    kw = dict(smoke=False, batch=TRAIN_B, seq=TRAIN_S, log_every=1,
+              device="cuda")
+    tmp = tempfile.mkdtemp(dir=ROOT / "build", prefix="chip_smoke_train_")
+    try:
+        _zero_counts()                      # the main path's run starts
+        t0 = time.perf_counter()
+        losses = train(TRAIN_ARCH, steps=TRAIN_STEPS, ckpt_dir=tmp,
+                       ckpt_every=TRAIN_CKPT_EVERY, **kw)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _read_counts()           # ... and ends
+        per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+        if per_step != want:
+            die("train", f"launches per step {per_step}, expected {want}")
+        if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()):
+            die("train", f"losses {losses}: not {TRAIN_STEPS} finite values")
+        for d in (Path(tmp), Path(tmp) / "opt"):    # resume from the first
+            shutil.rmtree(d / f"step_{TRAIN_STEPS}")
+        t0 = time.perf_counter()
+        resumed = train(TRAIN_ARCH, steps=TRAIN_STEPS, ckpt_dir=tmp,
+                        ckpt_every=100, **kw)
+        resume_s = time.perf_counter() - t0
+        diff = abs(resumed[-1] - losses[-1])
+        bound = 1e-3 + 1e-3 * abs(losses[-1])     # the reference test's
+        if len(resumed) != TRAIN_STEPS - TRAIN_CKPT_EVERY or not diff <= bound:
+            die("train", f"resumed from step {TRAIN_CKPT_EVERY}: losses "
+                         f"{resumed}, last {diff} from the uninterrupted "
+                         f"run's {losses[-1]} (bound {bound})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # The timed steps start from the same weights with the head projections
+    # at 1/sqrt(d_model) (_conditioned): under the reference's init rule the
+    # full-width model's gradient norm grows steeply with depth (both
+    # packages: tests/test_torch_train_full_width.py) and a few AdamW steps
+    # do not move its loss, so the check that the step learns is held on
+    # these. They train on one batch,
+    # repeated, whose loss must fall by more than 0.5, the margin of
+    # tests/test_training.py::test_loss_decreases_adamw.
+    bundle = get_bundle(cfg)
+    opt = get_optimizer(cfg.optimizer)
+    step = make_train_step(cfg, opt, microbatches=n_mb, device="cuda")
+    src = SyntheticLM(cfg, ShapeSpec("custom_train", "train", TRAIN_S,
+                                     TRAIN_B), seed=0)
+    batch = src.batch(0)
+    host = bundle.init(torch.Generator().manual_seed(0))   # train()'s
+    params = tree_map(lambda t: t.cuda(), host)
+    init_grad_norm = float(step(params, opt.init(params), batch, 0)[2][
+        "grad_norm"])                       # the main path's first step
+    params = tree_map(lambda t: t.cuda(), _conditioned(host, cfg))
+    del host
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    secs, norms, timed_losses = [], [], []
+    for i in range(TRAIN_TIMED):
+        out = {}
+        secs.append(_wall_s(lambda: out.update(
+            r=step(params, state, batch, i))))
+        params, state, m = out["r"]
+        norms.append(float(m["grad_norm"]))
+        timed_losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not timed_losses[-1] < timed_losses[0] - 0.5:
+        die("train", f"{TRAIN_TIMED} steps on one batch: losses "
+                     f"{timed_losses} do not fall by 0.5")
+    _zero_counts()
+    prof = _profile(lambda: _wall_s(lambda: step(params, state, batch, 0)))
+    prof_launches = _read_counts()          # three profiled sessions
+    if {k: n / 3 for k, n in prof_launches.items()} != want:
+        die("train", f"launches in 3 profiled steps {prof_launches}, "
+                     f"expected 3 x {want}")
+
+    B2, S2 = TRAIN_LONG
+    src2 = SyntheticLM(cfg, ShapeSpec("custom_train", "train", S2, B2), seed=0)
+    step2 = make_train_step(cfg, opt, microbatches=microbatch_count(cfg, B2),
+                            device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    long_secs, long_losses = [], []
+    for i in range(TRAIN_LONG_STEPS):
+        batch, out = src2.batch(i), {}
+        long_secs.append(_wall_s(lambda: out.update(
+            r=step2(params, state, batch, i))))
+        params, state, m = out["r"]
+        long_losses.append(float(m["loss"]))
+    long_peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(long_losses).all():
+        die("train", f"(2, 2048) losses {long_losses}")
+    del params, state
+    torch.cuda.empty_cache()
+    p50 = float(np.median(secs))
+    res = {"phase": "train", "ok": True, "model": TRAIN_ARCH,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "optimizer": cfg.optimizer,
+           "microbatches": n_mb, "remat": cfg.remat,
+           "batch": TRAIN_B, "seq": TRAIN_S,
+           "params": param_count(bundle.spec()),
+           "losses": losses, "loss_first": losses[0], "loss_last": losses[-1],
+           "run_s": run_s, "resumed_losses": resumed, "resume_s": resume_s,
+           "resume_last_loss_diff": diff, "resume_bound": bound,
+           "launches": launches, "launches_per_step": per_step,
+           "launches_per_step_expected": want,
+           "timed_steps": {"n": len(secs), "p50_ms": p50 * 1e3,
+                           "min_ms": min(secs) * 1e3,
+                           "max_ms": max(secs) * 1e3},
+           "tokens_per_s": TRAIN_B * TRAIN_S / p50,
+           "grad_norm_reference_init": init_grad_norm,
+           "timed_losses": timed_losses, "grad_norms": norms,
+           "peak_device_bytes": peak, "profile_step": prof,
+           "long": {"batch": B2, "seq": S2, "steps": TRAIN_LONG_STEPS,
+                    "step_ms": [x * 1e3 for x in long_secs],
+                    "tokens_per_s": B2 * S2 / min(long_secs),
+                    "losses": long_losses, "peak_device_bytes": long_peak},
+           "smoke_card_vs_cpu": _train_smoke_against_cpu()}
+    emit(res)
     return res
 
 
@@ -1480,7 +1886,8 @@ def phase_profile():
     lm_cfgs = {"qwen2_full_decode": get_config("qwen2-0.5b"),
                "qwen2_decode": get_smoke_config("qwen2-0.5b"),
                "mamba2_decode": get_smoke_config("mamba2-130m")}
-    want = {"flash_attention": 0, "ssd_scan": 0, "flash_decode": sum(
+    want = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0,
+            "flash_decode": sum(
         (PROFILE_REPS + 1) * len(buckets[mid]) * _attn_layers(cfg)
         for mid, cfg in lm_cfgs.items())}
     if launches != want:
@@ -1599,7 +2006,8 @@ def phase_runtime(store_path):
                  and summary["goodput"] >= 0.9 * summary["sent"]
                  and all(m["warmup_count"] == 0 for m in per_model.values())
                  and q_infers > 0
-                 and launches == {"flash_attention": 0, "ssd_scan": 0,
+                 and launches == {"flash_attention": 0,
+                                  "flash_attention_bwd": 0, "ssd_scan": 0,
                                   "flash_decode": n_layers * q_infers}
                  and folded_only_fresh and host.closed)
     emit(res)
@@ -1630,6 +2038,7 @@ def main():
     phase_build()
     kern = phase_kernels()
     prefill = phase_prefill()
+    train = phase_train()
     serve = phase_serve()
     phase_resnet()
     runtime = phase_runtime(phase_profile())
@@ -1640,6 +2049,9 @@ def main():
         for name, n in r.get("launches", {}).items():
             if n:
                 by_path[name][f"prefill {arch}"] = n
+    for name, n in train["launches"].items():
+        if n:
+            by_path[name][f"train {TRAIN_ARCH}"] = n
     for arch, r in serve.items():
         by_path["flash_decode"][f"serve {arch}"] = r["flash_decode_launches"]
     by_path["flash_decode"]["runtime"] = runtime["launches"]["flash_decode"]
@@ -1683,11 +2095,30 @@ def main():
             "launches_per_prefill": {
                 a: r["launches_per_prefill"][name] for a, r in prefill.items()
                 if r.get("launches_per_prefill", {}).get(name)},
+            **({"launches_per_train_step": train["launches_per_step"][name]}
+               if name in train["launches_per_step"] and
+               train["launches_per_step"][name] else {}),
             "max_abs_err": kern[name]["max_abs_err_path"],
             **{k: shape[k] for k in timed},
             **({"library_note": shape["library_note"]}
                if "library_note" in shape else {}),
             "shape": {k: shape[k] for k in keys}})
+    bwd = kern["flash_attention_bwd"]
+    shape = bwd["shapes"][0]
+    lines.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/flash_xla.py:105",
+        "launches": sum(by_path["flash_attention_bwd"].values()),
+        "launches_by_path": by_path["flash_attention_bwd"],
+        "launches_per_train_step": train["launches_per_step"][
+            "flash_attention_bwd"],
+        "max_abs_err": bwd["max_abs_err_path"],
+        "max_rel_err": bwd["max_rel_err_path"],
+        **{k: shape[k] for k in timed},
+        "library_note": shape["library_note"],
+        "shape": {k: shape[k] for k in ("B", "S", "H", "K", "D", "causal",
+                                        "dtype")}})
     emit({"kernels": lines})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

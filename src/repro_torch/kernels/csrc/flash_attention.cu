@@ -56,6 +56,11 @@
 //   score tile and a 4 x ceil(D/16) block of the output accumulator in
 //   registers.
 //
+// Both kernels write the row log-sum-exp lse = m + log(max(l, 1e-37)), f32
+// (B, H, Sq), when they are given a non-null pointer for it: the train
+// forward saves it for csrc/flash_attention_bwd.cu. Serving and prefill pass
+// null, and the kernels then store nothing more.
+//
 // Layout: q (B, Sq, H, D), k and v (B, Skv, K, D) are read through their
 // strides (the head dim contiguous; for bf16 the base 16-byte aligned and
 // every other stride a multiple of 16 bytes, as TMA needs: the wrapper
@@ -149,8 +154,8 @@ __global__ void __launch_bounds__(WG_THREADS)
 flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                     int H, int G, int Sq, int Skv, int D, int causal, int window, float cap,
-                     float scale) {
+                     float* __restrict__ lse, int H, int G, int Sq, int Skv, int D, int causal,
+                     int window, float cap, float scale) {
   using Gm = Geom<PD>;
   constexpr int PW = Gm::PW, NP = Gm::NP;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -290,6 +295,8 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
     const int row = q0 + r_lo + 8 * i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-37f);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((int64_t)b * H + h) * Sq + row] = m[i] + logf(denom);
     __nv_bfloat16* orow = out + (((int64_t)b * Sq + row) * H + h) * D;
 #pragma unroll
     for (int p = 0; p < NP; ++p)
@@ -351,8 +358,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
 template <int PD>
 int launch_bf16(const void* q, long long q_sb, long long q_ss, long long q_sh, const void* k,
                 long long k_sb, long long k_ss, long long k_sh, const void* v, long long v_sb,
-                long long v_ss, long long v_sh, void* out, int B, int H, int G, int Sq, int Skv,
-                int D, int causal, int window, float cap, float scale, cudaStream_t stream) {
+                long long v_ss, long long v_sh, void* out, float* lse, int B, int H, int G,
+                int Sq, int Skv, int D, int causal, int window, float cap, float scale,
+                cudaStream_t stream) {
   using Gm = Geom<PD>;
   const int K = H / G;
   CUtensorMap tq, tk, tv;
@@ -370,8 +378,8 @@ int launch_bf16(const void* q, long long q_sb, long long q_ss, long long q_sh, c
   }
   dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   flash_attention_bf16<PD><<<grid, WG_THREADS, Gm::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, G, Sq, Skv, D, causal, window, cap,
-      scale);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, H, G, Sq, Skv, D, causal, window,
+      cap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -403,8 +411,8 @@ __global__ void __launch_bounds__(F32_THREADS)
 flash_attention_f32(const float* __restrict__ q, int64_t q_sb, int64_t q_ss, int64_t q_sh,
                     const float* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                     const float* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                    float* __restrict__ out, int H, int G, int Sq, int Skv, int D,
-                    int causal, int window, float cap, float scale) {
+                    float* __restrict__ out, float* __restrict__ lse, int H, int G, int Sq,
+                    int Skv, int D, int causal, int window, float cap, float scale) {
   extern __shared__ float smem[];
   const int ldk = D + 1;                 // padded rows: no bank conflicts
   const int ldp = BK + 1;
@@ -528,6 +536,7 @@ flash_attention_f32(const float* __restrict__ q, int64_t q_sb, int64_t q_ss, int
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-37f);
+    if (lse != nullptr && tx == 0) lse[((int64_t)b * H + h) * Sq + r] = m[i] + logf(denom);
     float* orow = out + (((int64_t)b * Sq + r) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
@@ -541,7 +550,7 @@ template <int DC>
 int launch_f32_dc(const void* q, long long q_sb, long long q_ss, long long q_sh,
                   const void* k, long long k_sb, long long k_ss, long long k_sh,
                   const void* v, long long v_sb, long long v_ss, long long v_sh,
-                  void* out, int B, int H, int G, int Sq, int Skv, int D,
+                  void* out, float* lse, int B, int H, int G, int Sq, int Skv, int D,
                   int causal, int window, float cap, float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(D);
   if (smem > 48 * 1024) {
@@ -555,7 +564,7 @@ int launch_f32_dc(const void* q, long long q_sb, long long q_ss, long long q_sh,
       static_cast<const float*>(q), q_sb, q_ss, q_sh,
       static_cast<const float*>(k), k_sb, k_ss, k_sh,
       static_cast<const float*>(v), v_sb, v_ss, v_sh,
-      static_cast<float*>(out), H, G, Sq, Skv, D, causal, window, cap, scale);
+      static_cast<float*>(out), lse, H, G, Sq, Skv, D, causal, window, cap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -567,17 +576,19 @@ extern "C" {
 int flash_attention_max_d() { return MAX_D; }
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor cores, TMA).
-// Strides are in elements. out is a contiguous (B, Sq, H, D). Returns the
-// cudaError_t of the launch (0 = success); the caller raises on nonzero.
+// Strides are in elements. out is a contiguous (B, Sq, H, D); lse, when not
+// null, a contiguous f32 (B, H, Sq) that receives the row log-sum-exp.
+// Returns the cudaError_t of the launch (0 = success); the caller raises on
+// nonzero.
 int flash_attention_launch(int dtype,
                            const void* q, long long q_sb, long long q_ss, long long q_sh,
                            const void* k, long long k_sb, long long k_ss, long long k_sh,
                            const void* v, long long v_sb, long long v_ss, long long v_sh,
-                           void* out, int B, int H, int G, int Sq, int Skv, int D,
+                           void* out, float* lse, int B, int H, int G, int Sq, int Skv, int D,
                            int causal, int window, float cap, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_ARGS q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh, out, B, H, G, \
-                Sq, Skv, D, causal, window, cap, scale, st
+#define FA_ARGS q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh, out, lse, B, H, \
+                G, Sq, Skv, D, causal, window, cap, scale, st
   if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if (D <= 16) return launch_f32_dc<1>(FA_ARGS);

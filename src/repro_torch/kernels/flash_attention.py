@@ -1,4 +1,5 @@
-"""Flash attention over a whole sequence (prefill and the train forward).
+"""Flash attention over a whole sequence (prefill and the train forward),
+and its backward.
 
 Port of the Pallas TPU kernel ``repro/kernels/flash_attention.py::
 flash_attention_bhsd``. On a CUDA tensor :func:`flash_attention` launches
@@ -8,6 +9,16 @@ on a CPU tensor it runs :func:`flash_attention_plain`. Any other device
 raises. The kernel is chosen by dtype: bfloat16 (the models' type) runs on
 the tensor cores (wgmma) with K/V tiles brought by TMA; float32 (the parity
 cases) runs the CUDA-core kernel.
+
+The gradient: when grad is enabled and an input requires it,
+:func:`flash_attention` goes through :class:`FlashAttention`, an
+``autograd.Function`` (the port of the ``custom_vjp`` of
+``repro/models/flash_xla.py::_make_flash``). Its forward runs the forward
+with the row log-sum-exp ``lse`` (B, H, Sq) f32 as a second output, and
+its backward :func:`flash_attention_bwd`: on a CUDA tensor the
+hand-written kernels of ``csrc/flash_attention_bwd.cu``, on a CPU tensor
+:func:`flash_attention_bwd_plain`, the port of that ``custom_vjp``'s
+``bwd``. There is no plain path on the card.
 
 Layout (the model's, read through strides, no copy): q (B, Sq, H, D);
 k, v (B, Skv, K, D); query head h reads kv head h // G with G = H // K.
@@ -25,11 +36,25 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _mask(Sq: int, Skv: int, causal: bool, window: int, device):
+    """(Sq, Skv) bool: the (q, k) pairs attention keeps."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= qpos - kpos < window
+    return mask
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          cap: float = 0.0):
+                          cap: float = 0.0, return_lse: bool = False):
     """Plain PyTorch version (port of ``ref.flash_attention_ref``, in the
     model layout): full scores in f32, masked with the finite NEG_INF,
-    softmax, p rounded to v's dtype before the PV product."""
+    softmax, p rounded to v's dtype before the PV product. With
+    ``return_lse`` also the row log-sum-exp m + log(max(l, 1e-37)), (B, H,
+    Sq) f32, as ``flash_xla._fwd_impl`` returns it."""
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
@@ -37,18 +62,52 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
     if cap:
         s = cap * torch.tanh(s / cap)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window:
-        mask &= qpos - kpos < window
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
+    s = torch.where(_mask(Sq, Skv, causal, window, q.device), s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / l
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
-    return out.to(v.dtype).reshape(B, Sq, H, D)
+    out = out.to(v.dtype).reshape(B, Sq, H, D)
+    if not return_lse:
+        return out
+    lse = (m + torch.log(torch.clamp(l, min=1e-37)))[..., 0]
+    return out, lse.reshape(B, H, Sq)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
+                              window: int = 0, cap: float = 0.0):
+    """Plain PyTorch backward (port of the ``bwd`` of
+    ``repro/models/flash_xla.py::_make_flash``, with full scores in place of
+    its key chunks): delta = rowsum(dout·out) in f32; the scores recomputed
+    in f32 and p = exp(s - lse); p rounded to dout's dtype before dv;
+    ds = p·(dp - delta), times (1 - t²) under a softcap, rounded to q's
+    dtype before dq and dk; dq summed in f32 and scaled once at the end.
+    lse (B, H, Sq) f32. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = D ** -0.5
+    qf = q.float().reshape(B, Sq, K, G, D)
+    do = dout.float().reshape(B, Sq, K, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf * scale, k.float())
+    if cap:
+        t = torch.tanh(s / cap)
+        s = cap * t
+    s = torch.where(_mask(Sq, Skv, causal, window, q.device), s, NEG_INF)
+    p = torch.exp(s - lse.float().reshape(B, K, G, Sq)[..., None])
+    delta = torch.einsum("bqkgd,bqkgd->bkgq", do,
+                         out.float().reshape(B, Sq, K, G, D))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p.to(dout.dtype).float(), do)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.float())
+    ds = p * (dp - delta[..., None])
+    if cap:
+        ds = ds * (1.0 - t * t)
+    ds = ds.to(q.dtype).float()
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    return (dq.to(q.dtype).reshape(B, Sq, H, D), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _kernel():
@@ -57,7 +116,7 @@ def _kernel():
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [I, P, L, L, L, P, L, L, L, P, L, L, L, P,
+        fn.argtypes = [I, P, L, L, L, P, L, L, L, P, L, L, L, P, P,
                        I, I, I, I, I, I, I, I, ctypes.c_float, ctypes.c_float,
                        P]
         fn.restype = I
@@ -86,11 +145,16 @@ def _check(q, k, v, max_d: int):
         raise ValueError("flash_attention: the head dim must be contiguous")
     if q.dtype == torch.bfloat16:
         check_tma_layout(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention: the CUDA kernel has no backward yet (it comes "
-            "with the training port); run under torch.no_grad()")
+
+
+def _vector_readable(t):
+    """Whether 16-byte copies (TMA, or the bf16 backward's loads) can read
+    the rows of a bf16 (B, S, heads, D) tensor as it is: the base 16-byte
+    aligned and every stride of a dim longer than one a positive multiple
+    of 8 elements."""
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(i) % 8 == 0 and t.stride(i) > 0
+        for i in range(3) if t.shape[i] > 1)
 
 
 def check_tma_layout(q, k, v):
@@ -102,8 +166,7 @@ def check_tma_layout(q, k, v):
         raise ValueError(f"flash_attention: bf16 needs D a multiple of 16, "
                          f"got {D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16 or any(t.stride(i) % 8 or t.stride(i) <= 0
-                                    for i in range(3) if t.shape[i] > 1):
+        if not _vector_readable(t):
             raise ValueError(
                 f"flash_attention: {name} {tuple(t.shape)} with strides "
                 f"{t.stride()} cannot be read by TMA: the base must be "
@@ -117,15 +180,17 @@ def _strides(t):
             for i in range(3)]
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    cap: float = 0.0):
-    """q (B,Sq,H,D); k, v (B,Skv,K,D) -> (B,Sq,H,D) in q's dtype.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise. ``flash_attention.launches`` counts kernel launches."""
+def _forward(q, k, v, causal: bool, window: int, cap: float,
+             want_lse: bool):
+    """(out, lse or None): the plain version on the CPU, the kernel on the
+    card (lse written only when asked for: a null pointer otherwise)."""
     if q.device.type == "cpu":
+        if want_lse:
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window, cap=cap,
+                                         return_lse=True)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     cap=cap)
+                                     cap=cap), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     launch, max_d = _kernel()
@@ -133,19 +198,133 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     rc = launch(
         _DTYPES[q.dtype],
         q.data_ptr(), *_strides(q),
         k.data_ptr(), *_strides(k),
         v.data_ptr(), *_strides(v),
-        out.data_ptr(), B, H, H // K, Sq, Skv, D, int(bool(causal)),
+        out.data_ptr(), lse.data_ptr() if want_lse else None,
+        B, H, H // K, Sq, Skv, D, int(bool(causal)),
         int(window), float(cap), D ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: cudaError {rc}")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def _bwd_kernel():
+    """(launch function, largest head dim) of the backward's library."""
+    lib = build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    if fn.argtypes is None:
+        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = ([I] + [P, L, L, L] * 5 + [P] * 6
+                       + [I] * 8 + [ctypes.c_float, ctypes.c_float, P])
+        fn.restype = I
+        lib.flash_attention_bwd_max_d.argtypes = []
+        lib.flash_attention_bwd_max_d.restype = I
+    return fn, lib.flash_attention_bwd_max_d()
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, cap: float = 0.0):
+    """(dq, dk, dv) of attention given the forward's out and lse (B, H, Sq)
+    f32 and the output gradient dout (B, Sq, H, D). CPU tensors run
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch the kernels of
+    ``csrc/flash_attention_bwd.cu`` (delta, dk/dv, in bf16 with GQA the sum
+    over each kv head's query heads, then dq: one call, one count in
+    ``flash_attention_bwd.launches``) or raise."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         cap=cap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device "
+                         f"{q.device}")
+    launch, max_d = _bwd_kernel()
+    _check(q, k, v, max_d)
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    if dout.stride(-1) != 1 or (dout.dtype == torch.bfloat16
+                                and not _vector_readable(dout)):
+        dout = dout.contiguous()
+    for name, t in (("out", out), ("dout", dout)):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or t.stride(-1) != 1 or (t.dtype == torch.bfloat16
+                                         and not _vector_readable(t))):
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} does not match q")
+    if (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"f32 (B, H, Sq) on q's device, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # bf16 with GQA: each query head's share of dk and dv, summed after
+    part = (torch.empty((2, B, Skv, H, D), dtype=torch.float32,
+                        device=q.device)
+            if q.dtype == torch.bfloat16 and H > K else None)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((B, Skv, K, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Skv, K, D), dtype=v.dtype, device=q.device)
+    rc = launch(
+        _DTYPES[q.dtype],
+        *(x for t in (q, k, v, out, dout)
+          for x in (t.data_ptr(), t.stride(0), t.stride(1), t.stride(2))),
+        lse.data_ptr(), delta.data_ptr(),
+        part.data_ptr() if part is not None else None, dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, H // K, Sq, Skv, D,
+        int(bool(causal)),
+        int(window), float(cap), D ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd kernel launch failed: cudaError {rc}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward: the forward saves (q, k, v, out,
+    lse), the backward recomputes the scores from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap):
+        out, lse = _forward(q, k, v, causal, window, cap, want_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, cap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, window, cap = ctx.mask
+        dq, dk, dv = flash_attention_bwd(*ctx.saved_tensors, dout,
+                                         causal=causal, window=window,
+                                         cap=cap)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    cap: float = 0.0):
+    """q (B,Sq,H,D); k, v (B,Skv,K,D) -> (B,Sq,H,D) in q's dtype.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise. When grad is enabled and an input requires it, the call goes
+    through :class:`FlashAttention`, whose backward is
+    :func:`flash_attention_bwd`. ``flash_attention.launches`` counts forward
+    kernel launches."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                    float(cap))
+    return _forward(q, k, v, causal, window, cap, want_lse=False)[0]
 
 
 flash_attention.launches = 0

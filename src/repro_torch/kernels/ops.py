@@ -13,7 +13,9 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     cap: float = 0.0):
-    """q (B,Sq,H,D); k,v (B,Skv,K,D) with H = K*G -> (B,Sq,H,D)."""
+    """q (B,Sq,H,D); k,v (B,Skv,K,D) with H = K*G -> (B,Sq,H,D). Under
+    grad, with an input that requires it, this is the FlashAttention
+    autograd.Function (the kernels' backward on the card)."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                cap=cap)
 

@@ -132,7 +132,8 @@ def _check(x, dt, a, b, c, Q, limits):
                                        for t in (x, dt, a, b, c)):
         raise NotImplementedError(
             "ssd_scan: the CUDA kernel has no backward yet (it comes with "
-            "the training port); run under torch.no_grad()")
+            "the mamba2 training slice, after the attention backward); run "
+            "under torch.no_grad(), or train on device='cpu'")
 
 
 def check_layout(x, b, c):

@@ -10,8 +10,12 @@ drives the stack with ``lax.scan``; here a Python loop walks the leading
 dim.
 
 Three modes share one block implementation:
-  * ``train``   — full attention, no cache (the forward only: the backward
-    comes with the training port)
+  * ``train``   — full attention, no cache; differentiable (attention's
+    backward is ``kernels.flash_attention.FlashAttention``). Under
+    ``cfg.remat`` each group of the stack runs under
+    ``torch.utils.checkpoint`` (non-reentrant), saving only the group's
+    input, as the reference wraps its scan body in ``jax.checkpoint`` with
+    ``nothing_saveable``
   * ``prefill`` — full attention, returns a decode-ready cache with the
     ``init_cache`` structure
   * ``decode``  — one token against the cache, which is updated in place
@@ -19,6 +23,7 @@ Three modes share one block implementation:
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as pspec
@@ -32,7 +37,7 @@ from repro_torch.models.rglru import (rglru_decode, rglru_full, rglru_spec,
                                       rglru_state)
 from repro_torch.models.ssm import (mamba_decode, mamba_full, mamba_spec,
                                     mamba_state)
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 ATTN_KINDS = ("attn", "local")
 MODES = ("train", "prefill", "decode")
@@ -195,12 +200,23 @@ def _run_stack(params, cfg: ModelConfig, x, *, mode, positions=None,
               enc_out=enc_out, enc_positions=enc_positions, causal=causal,
               cache_len=cache_len)
     per_group = [[] for _ in pattern]
+    # one unbind per stacked leaf: under autograd its backward stacks the
+    # groups' gradients once, where slicing a[gi] per group would add a
+    # full-size, zero-padded gradient for every group
+    groups = [_unstack(p, n_groups) for p in params["stack"]]
     for gi in range(n_groups):
+        group = [g[gi] for g in groups]
+        if mode == "train":
+            if cfg.remat:   # saves the group's input; recomputed in backward
+                x = checkpoint(_train_group, group, cfg, pattern, x, kw,
+                               use_reentrant=False)
+            else:
+                x = _train_group(group, cfg, pattern, x, kw)
+            continue
         for i, kind in enumerate(pattern):
             c = (tree_map(lambda a: a[gi], cache["stack"][i])
                  if mode == "decode" else None)
-            x, nc = block_apply(tree_map(lambda a: a[gi], params["stack"][i]),
-                                cfg, kind, x, cache=c, **kw)
+            x, nc = block_apply(group[i], cfg, kind, x, cache=c, **kw)
             per_group[i].append(nc)
     left = []
     for i, kind in enumerate(leftover):
@@ -212,6 +228,20 @@ def _run_stack(params, cfg: ModelConfig, x, *, mode, positions=None,
         return x, cache
     stack = tuple(_stack(c) for c in per_group) if n_groups else ()
     return x, {"stack": stack, "leftover": tuple(left)}
+
+
+def _unstack(tree, n: int):
+    """A tree of stacked leaves -> n trees, leaf i of each from unbind."""
+    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[gi] for p in parts]) for gi in range(n)]
+
+
+def _train_group(group, cfg: ModelConfig, pattern, x, kw):
+    """One group of the stack in train mode (the unit of remat): ``group``
+    holds the group's parameters, one tree per pattern entry."""
+    for p, kind in zip(group, pattern):
+        x, _ = block_apply(p, cfg, kind, x, **kw)
+    return x
 
 
 def _stack(trees):

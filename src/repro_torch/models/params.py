@@ -32,17 +32,18 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
-def _map_specs(fn, tree):
+def tree_map_specs(fn, tree):
+    """Apply ``fn`` to every ParamSpec of a dict/tuple spec tree."""
     if isinstance(tree, ParamSpec):
         return fn(tree)
     if isinstance(tree, dict):
-        return {k: _map_specs(fn, v) for k, v in tree.items()}
-    return tuple(_map_specs(fn, v) for v in tree)
+        return {k: tree_map_specs(fn, v) for k, v in tree.items()}
+    return tuple(tree_map_specs(fn, v) for v in tree)
 
 
 def stack_specs(tree, n: int, axis_name=None):
     """Add a leading stacked-layer dim of size ``n`` to every spec."""
-    return _map_specs(
+    return tree_map_specs(
         lambda s: ParamSpec((n,) + tuple(s.shape), (axis_name,) + tuple(s.axes),
                             s.dtype, s.init, s.scale), tree)
 
@@ -71,7 +72,7 @@ def materialize(tree, gen: torch.Generator):
             x.mul_(std)
         return x.to(spec.dtype)
 
-    return _map_specs(make, tree)
+    return tree_map_specs(make, tree)
 
 
 def _leaf_specs(tree):

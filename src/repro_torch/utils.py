@@ -36,6 +36,26 @@ def tree_map(fn, tree: Any):
     return fn(tree)
 
 
+def tree_leaves_like(tree: Any, like: Any) -> list:
+    """The subtrees of ``tree`` that sit where ``like`` has its leaves, in
+    ``tree_leaves(like)`` order (``jax``'s ``flatten_up_to``): an optimizer
+    state of one dict per parameter gives one dict per leaf."""
+    if isinstance(like, dict):
+        return [x for k, v in like.items() for x in tree_leaves_like(tree[k], v)]
+    if isinstance(like, (tuple, list)):
+        if len(tree) != len(like):
+            raise ValueError(f"tree of {len(tree)} where {len(like)} expected")
+        return [x for t, l in zip(tree, like) for x in tree_leaves_like(t, l)]
+    return [tree]
+
+
+def tree_unflatten(like: Any, leaves) -> Any:
+    """A tree of ``like``'s structure holding ``leaves``, taken in
+    ``tree_leaves(like)`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def tree_bytes(tree: Any) -> int:
     """Total bytes of a tree of tensors."""
     return sum(t.nelement() * t.element_size() for t in tree_leaves(tree))

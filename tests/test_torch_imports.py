@@ -1,5 +1,6 @@
-"""Guards on the port's boundaries: ``repro_torch`` imports without JAX and
-loads no module of ``repro``; its copied control-plane modules stay equal to
+"""Guards on the port's boundaries: ``repro_torch`` imports without JAX or
+``ml_dtypes`` (neither is installed where the card is) and loads no module
+of ``repro``; its copied control-plane modules stay equal to
 their originals up to the package prefix (in imports, in ``python -m``
 module paths and in quoted module names, so that no copy imports, spawns or
 names a module of ``repro``); its configs equal the reference's."""
@@ -26,6 +27,7 @@ COPIED = [
     "runtime/__init__.py", "runtime/protocol.py", "runtime/transport.py",
     "runtime/client.py", "runtime/controller.py", "runtime/worker.py",
     "runtime/harness.py", "runtime/loadgen.py",
+    "data/pipeline.py",
 ]
 ARCHS = ["seamless-m4t-medium", "llava-next-mistral-7b", "mamba2-130m",
          "gemma2-27b", "starcoder2-3b", "phi4-mini-3.8b", "qwen2-0.5b",
@@ -43,11 +45,13 @@ def _port_modules():
 
 
 def _import_with_jax_blocked(modules):
-    """Import ``modules`` in a fresh interpreter where ``import jax`` fails;
-    assert it succeeds and loaded no module of ``repro``."""
+    """Import ``modules`` in a fresh interpreter where ``import jax`` and
+    ``import ml_dtypes`` fail; assert it succeeds and loaded no module of
+    ``repro``."""
     code = (
         "import importlib, json, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         f"for m in {list(modules)!r}:\n"
         "    importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules\n"
@@ -71,6 +75,9 @@ SLICE_MODULES = [
     "repro_torch.models.resnet", "repro_torch.telemetry.profiler",
     "repro_torch.runtime.harness", "repro_torch.models.rglru",
     "repro_torch.models.moe", "repro_torch.models.encdec",
+    "repro_torch.data.pipeline", "repro_torch.training.compression",
+    "repro_torch.training.optimizer", "repro_torch.checkpoint.checkpoint",
+    "repro_torch.launch.train",
 ]
 
 
@@ -82,11 +89,12 @@ def test_slice_module_imports_alone_without_jax_or_repro(module):
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in (SRC / "repro_torch").rglob("*.py"))
-    + ["chip_smoke.py"])
+    + ["chip_smoke.py", "examples/train_lm_torch.py",
+       "examples/quickstart_torch.py"])
 def test_no_jax_or_repro_import_in_source(path):
     text = (ROOT / path).read_text()
-    bad = re.findall(r"^\s*(?:import|from) (?:jax|repro)\b.*$", text,
-                     flags=re.M)
+    bad = re.findall(r"^\s*(?:import|from) (?:jax|repro|ml_dtypes)\b.*$",
+                     text, flags=re.M)
     assert not bad, bad
 
 

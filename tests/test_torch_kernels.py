@@ -69,7 +69,7 @@ def _torch(a, dtype):
 
 
 def _np(t):
-    return t.float().cpu().numpy()
+    return t.detach().float().cpu().numpy()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -242,6 +242,128 @@ def test_flash_attention_refuses_layouts_tma_cannot_read():
     k24 = torch.zeros((1, 8, 1, 24), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple of 16"):
         fa.check_tma_layout(q24, k24, k24)
+
+
+# ------------------------------------------------------------ attention backward
+
+# tests/test_kernels.py::test_flash_xla_custom_vjp_grads's cases (G = 3,
+# Sq = Skv = 33), then Sq != Skv both ways (a cross layer: non-causal)
+BWD_CASES = [
+    (2, 33, 33, 6, 2, 16, True, 0, 0.0),
+    (2, 33, 33, 6, 2, 16, True, 7, 20.0),
+    (2, 33, 33, 6, 2, 16, False, 0, 0.0),
+    (1, 20, 37, 6, 2, 16, False, 0, 0.0),
+    (1, 37, 20, 6, 2, 16, False, 0, 0.0),
+]
+# the reference's gradient tolerance (test_flash_xla_custom_vjp_grads) in
+# f32; in bf16 the kernel tests' 2e-2 (the reference also rounds its scores
+# and dout·vᵀ to bf16, the port keeps them in f32)
+BWD_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
+
+
+def _bwd_inputs(case, seed=11):
+    q, k, v = _attn_inputs(case, seed)
+    dout = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(
+        np.float32)
+    return q, k, v, dout
+
+
+def _reference_vjp(case, dtype, q, k, v, dout):
+    """(out, lse (B, H, Sq), (dq, dk, dv)) of the JAX package's custom-vjp
+    path, ``chunked_attention`` (chunks of 8 keys), as float32 arrays."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.attention import chunked_attention
+    from repro.models.flash_xla import _fwd_impl
+    B, Sq, Skv, H, K, D, causal, window, cap = case
+    G = H // K
+    jd = getattr(jnp, dtype)
+
+    def f(q_, k_, v_):
+        return chunked_attention(q_.reshape(B, Sq, K, G, D), k_, v_,
+                                 causal=causal, window=window, cap=cap,
+                                 chunk=8).reshape(B, Sq, H, D)
+
+    args = [jnp.asarray(a, jd) for a in (q, k, v)]
+    out, vjp = jax.vjp(f, *args)
+    grads = vjp(jnp.asarray(dout, jd))
+    _, lse = _fwd_impl(args[0].reshape(B, Sq, K, G, D), args[1], args[2],
+                       causal=causal, window=window, cap=cap, chunk=8)
+    as32 = lambda a: np.asarray(a, np.float32)                  # noqa: E731
+    return (as32(out), as32(lse).reshape(B, H, Sq),
+            tuple(as32(g) for g in grads))
+
+
+@pytest.mark.parametrize("route", ["plain", "function"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_bwd_matches_reference_vjp(case, dtype, route):
+    """flash_attention_bwd_plain (from the plain forward's out and lse) and
+    the FlashAttention autograd.Function (through flash_attention with
+    inputs that require grad, on the CPU) against jax.vjp of the JAX
+    package's chunked_attention; the plain forward's lse against
+    flash_xla's."""
+    B, Sq, Skv, H, K, D, causal, window, cap = case
+    q, k, v, dout = _bwd_inputs(case)
+    want_out, want_lse, want = _reference_vjp(case, dtype, q, k, v, dout)
+    kw = dict(causal=causal, window=window, cap=cap)
+    tq, tk, tv, tg = (_torch(a, dtype) for a in (q, k, v, dout))
+    fwd0, bwd0 = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    if route == "plain":
+        out, lse = fa.flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+        assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+        # in bf16 the reference's scores are rounded to bf16, the port's not
+        np.testing.assert_allclose(lse.numpy(), want_lse, rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+        got = fa.flash_attention_bwd_plain(tq, tk, tv, out, lse, tg, **kw)
+    else:
+        for t in (tq, tk, tv):
+            t.requires_grad_()
+        out = tops.flash_attention(tq, tk, tv, **kw)
+        assert out.grad_fn is not None
+        out.backward(tg)
+        got = (tq.grad, tk.grad, tv.grad)
+    # the CPU runs the plain versions: no kernel was launched
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) == (
+        fwd0, bwd0)
+    tol = BWD_TOL[dtype]
+    np.testing.assert_allclose(_np(out), want_out, rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    for name, g, w, t in zip("qkv", got, want, (tq, tk, tv)):
+        assert g.dtype == t.dtype and g.shape == t.shape, name
+        np.testing.assert_allclose(_np(g), w, rtol=tol, atol=tol,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_bwd_matches_torch_autograd(case, dtype):
+    """The plain backward against torch autograd through
+    flash_attention_plain itself, on the same inputs (2e-4 in f32; in bf16
+    the kernel tests' 2e-2: autograd differentiates the plain forward's
+    bf16 cast of p, the flash backward rounds p and ds as the reference
+    does)."""
+    causal, window, cap = case[6:]
+    q, k, v, dout = _bwd_inputs(case)
+    kw = dict(causal=causal, window=window, cap=cap)
+    args = [_torch(a, dtype).requires_grad_() for a in (q, k, v)]
+    g = _torch(dout, dtype)
+    fa.flash_attention_plain(*args, **kw).backward(g)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_plain(*args, return_lse=True, **kw)
+        got = fa.flash_attention_bwd_plain(*args, out, lse, g, **kw)
+    tol = TOL[dtype]
+    for name, a, t in zip("qkv", got, args):
+        np.testing.assert_allclose(_np(a), _np(t.grad), rtol=tol, atol=tol,
+                                   err_msg=f"d{name}")
+
+
+def test_flash_attention_bwd_refuses_devices_without_kernel():
+    q = torch.zeros((1, 8, 2, 16), device="meta")
+    k = torch.zeros((1, 8, 1, 16), device="meta")
+    lse = torch.zeros((1, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention_bwd(q, k, k, q, lse, q)
 
 
 # ------------------------------------------------------------ ssd_scan
@@ -552,3 +674,84 @@ def test_kernels_replay_in_a_cuda_graph():
             graph.replay()
             torch.cuda.synchronize()
             assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+
+
+# the backward on the card: the forward's cases, then gemma2-style window +
+# softcap, D = 256 (32-row tiles, two panels), Sq != Skv both ways, G = 16,
+# and the train path's shapes (qwen2-0.5b at (8, 256), (1, 2048), (4, 512))
+BWD_CUDA_CASES = ATTN_CASES + [
+    (2, 300, 300, 16, 8, 128, True, 64, 50.0),
+    (1, 130, 130, 4, 2, 256, True, 0, 0.0),
+    (1, 100, 180, 16, 16, 64, False, 0, 0.0),
+    (1, 180, 100, 16, 16, 64, False, 0, 0.0),
+    (1, 160, 160, 64, 4, 128, True, 0, 0.0),
+    (8, 256, 256, 14, 2, 64, True, 0, 0.0),
+    (1, 2048, 2048, 14, 2, 64, True, 0, 0.0),
+    (4, 512, 512, 14, 2, 64, True, 0, 0.0),
+]
+
+
+def _rel_err(got, want):
+    """max |got - want| over max |want| (at least 1e-30), f32."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CUDA_CASES)
+def test_flash_attention_bwd_cuda_matches_plain(case, dtype):
+    """The forward kernel's lse against the plain version's, then the
+    backward kernels against flash_attention_bwd_plain from the same out,
+    lse and dout: dq, dk and dv within 2e-4 (f32) or 2e-2 (bf16) of the
+    largest element of each."""
+    _card()
+    causal, window, cap = case[6:]
+    kw = dict(causal=causal, window=window, cap=cap)
+    q, k, v = (_torch(a, dtype).cuda() for a in _attn_inputs(case))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    out, lse = fa._forward(q, k, v, causal, window, cap, want_lse=True)
+    _, want_lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.cpu().numpy(),
+                               rtol=TOL["float32"], atol=TOL["float32"])
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    tol = {"float32": 2e-4, "bfloat16": 2e-2}[dtype]
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.isfinite(a).all().item(), name
+        assert _rel_err(a, w) <= tol, (name, _rel_err(a, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_grad_on_the_card(dtype):
+    """Autograd through ops.flash_attention on CUDA tensors: one forward
+    launch (with lse) and one backward launch, and the gradients of q, k
+    and v as views into one fused projection against the CPU's (plain)
+    gradients of the same values."""
+    _card()
+    B, S, H, K, D = 2, 150, 6, 2, 64
+    g = torch.Generator().manual_seed(4)
+    dt = getattr(torch, dtype)
+    qkv0 = torch.randn((B, S, H + 2 * K, D), generator=g).to(dt)
+    dout = torch.randn((B, S, H, D), generator=g).to(dt)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        qkv = qkv0.to(dev, copy=True).requires_grad_()
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+        fwd0, bwd0 = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+        out = tops.flash_attention(q, k, v, causal=True, window=40, cap=30.0)
+        out.backward(dout.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert fa.flash_attention.launches == fwd0 + 1
+            assert fa.flash_attention_bwd.launches == bwd0 + 1
+        grads[dev] = qkv.grad.cpu()
+    tol = {"float32": 2e-4, "bfloat16": 2e-2}[dtype]
+    assert _rel_err(grads["cuda"], grads["cpu"]) <= tol
