@@ -21,17 +21,21 @@ prefill phase one per model):
              Sq != Skv, G=16) and every prefill path's shapes (ATTN_TIMED);
              the attention backward (flash_attention_bwd: the forward
              kernel's out and lse, then dq, dk and dv against
-             flash_attention_bwd_plain) over ATTN_CASES in f32 and bf16 and
-             the train path's qwen2-0.5b shapes in bf16; ssd_scan over the
+             flash_attention_bwd_plain) over ATTN_CASES in f32 and bf16,
+             the train path's qwen2-0.5b shapes and every timed shape in
+             bf16, then repeated bf16 calls bit for bit (BWD_REPEAT);
+             ssd_scan over the
              reference's SSD_CASES and the mamba2-130m prefill shapes. The
-             count of HGMMA (tensor-core) instructions in the built
-             flash_attention and ssd_scan libraries (cuobjdump). Then
+             count of HGMMA (wgmma) instructions in the built
+             flash_attention, flash_attention_bwd and ssd_scan libraries
+             (cuobjdump; the run dies at 0), and of HMMA (mma.sync) ones. Then
              kernel, plain and library times at the main paths' shapes:
              device time from CUDA-graph replay and time per eager call,
              with CUDA events, and the achieved TFLOP/s, GB/s and share of
              the bound (for the backward the library is SDPA's backward
-             under autograd, and the forward is timed with lse written and
-             without); for ssd_scan also, from profiled calls, the device
+             under autograd, eager, in turns with the eager kernel, and
+             the forward is timed with lse written and without); for
+             ssd_scan also, from profiled calls, the device
              kernels per call, each pass's device time and the head group
              in use.
 4. prefill — the prefill -> decode path of every family at full width
@@ -114,6 +118,8 @@ Imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -209,13 +215,23 @@ ATTN_TIMED = [
 # the attention backward (csrc/flash_attention_bwd.cu) against
 # flash_attention_bwd_plain from the same out, lse and dout: ATTN_CASES in
 # f32 and bf16 (window + softcap, D=256, Sq != Skv both ways, G=10 and 16),
-# then bf16 at the train path's shapes with qwen2-0.5b's heads (B, S); dq,
-# dk and dv each within BWD_TOL of its largest element (in bf16 the kernel
-# sums p and ds products in another order than the plain einsums, both
-# from the same bf16-rounded p and ds). Timed at BWD_TIMED.
-BWD_PATH = [(8, 256), (1, 2048), (4, 512), (2, 2048)]
-BWD_TIMED = [(1, 2048), (4, 512)]
+# then bf16 at the train path's shapes with qwen2-0.5b's heads (B, S),
+# the train phase's own call (4, 256) (TRAIN_B / 2 per microbatch) among
+# them, and at every timed shape; dq, dk and dv each within BWD_TOL of its
+# largest element (in bf16 the kernel sums p and ds products in another
+# order than the plain einsums, both from the same bf16-rounded p and ds).
+# Timed at BWD_TIMED (B, S, H, K, D, all causal): qwen2-0.5b at (1, 2048),
+# (4, 512) and (4, 256), then phi4-mini's D=128 heads; the eager kernel and
+# SDPA's backward in BWD_ROUNDS interleaved turns of BWD_ROUND_CALLS calls.
+# BWD_REPEAT: bf16 cases whose repeated calls must be bit-equal (the train
+# loop's restart check): qwen2 at (1, 2048), and G=16 with a window.
+BWD_PATH = [(8, 256), (4, 256), (1, 2048), (4, 512), (2, 2048)]
+BWD_TIMED = [(1, 2048, 14, 2, 64), (4, 512, 14, 2, 64), (4, 256, 14, 2, 64),
+             (1, 2048, 24, 8, 128)]
 BWD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+BWD_ROUNDS, BWD_ROUND_CALLS = 7, 50
+BWD_REPEAT = [(1, 2048, 2048, 14, 2, 64, True, 0, 0.0),
+              (1, 512, 512, 64, 4, 128, True, 128, 0.0)]
 # tests/test_kernels.py::SSD_CASES (B, L, H, P, N, chunk); L=50 is ragged
 SSD_CASES = [(2, 64, 3, 16, 8, 16), (1, 50, 2, 8, 16, 16),
              (1, 128, 4, 32, 16, 32)]
@@ -549,14 +565,14 @@ def _check_attention_bwd(case, dtype):
     return abs_err, rel_err
 
 
-def _time_attention_bwd(B, S):
-    """Backward kernel, plain and SDPA-backward times at one qwen2-0.5b
-    (H=14, K=2, D=64, causal, bf16) train shape; the forward's time with
-    lse written and without, in turns (off, on, on, off)."""
+def _time_attention_bwd(B, S, H, K, D):
+    """Backward kernel, plain and SDPA-backward times at one causal bf16
+    train shape (B, S) with H query heads over K kv heads of width D; the
+    forward's time with lse written and without, in turns (off, on, on,
+    off)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    H, K, D = 14, 2, 64
     q, k, v, dout = _bwd_tensors((B, S, S, H, K, D), torch.bfloat16, seed=1)
     out, lse = fa._forward(q, k, v, True, 0, 0.0, want_lse=True)
     kw = dict(causal=True)
@@ -572,12 +588,24 @@ def _time_attention_bwd(B, S):
     dt = dout.transpose(1, 2)
     library = lambda: torch.autograd.grad(                    # noqa: E731
         lib_out, (qt, kt, vt), dt, retain_graph=True)
-    times = _timed(lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
-                                                  **kw),
+    kernel = lambda: fa.flash_attention_bwd(q, k, v, out, lse,  # noqa: E731
+                                            dout, **kw)
+    times = _timed(kernel,
                    lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse,
                                                         dout, **kw),
                    None)
-    times["library_ms"] = times["library_eager_ms"] = cuda_ms(library, 200)
+    # the eager kernel and the eager library in turns, one reading each a
+    # round: both drift with the host, so they are compared round by round
+    rounds = {"eager_ms_rounds": [], "library_ms_rounds": []}
+    for _ in range(BWD_ROUNDS):
+        rounds["eager_ms_rounds"].append(cuda_ms(kernel, BWD_ROUND_CALLS))
+        rounds["library_ms_rounds"].append(cuda_ms(library, BWD_ROUND_CALLS))
+    times["eager_ms"] = statistics.median(rounds["eager_ms_rounds"])
+    times["library_ms"] = times["library_eager_ms"] = statistics.median(
+        rounds["library_ms_rounds"])
+    rounds["rounds_kernel_faster"] = sum(
+        a < b for a, b in zip(rounds["eager_ms_rounds"],
+                              rounds["library_ms_rounds"]))
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     lib = library()
     lib_err = max((a.float() - b.transpose(1, 2).float()).abs().max().item()
@@ -590,10 +618,12 @@ def _time_attention_bwd(B, S):
                    + B * H * S * 4)          # lse
     ops = 10 * D * pairs                     # scores, dout.v^T, dv, dk, dq
     return _rated({"B": B, "S": S, "H": H, "K": K, "D": D, "causal": True,
-                   "dtype": "bfloat16", **times, "library_max_abs_err": lib_err,
+                   "dtype": "bfloat16", **times, **rounds,
+                   "library_max_abs_err": lib_err,
                    "library_note": "backward of F.scaled_dot_product_attention"
                                    "(enable_gqa=True) under autograd; CUDA "
-                                   "events around eager calls",
+                                   "events around eager calls; median of "
+                                   "rounds interleaved with the kernel's",
                    "forward_ms_lse_off": (fwd[0] + fwd[3]) / 2,
                    "forward_ms_lse_on": (fwd[1] + fwd[2]) / 2,
                    "forward_ms_turns": fwd,
@@ -730,19 +760,43 @@ def _time_ssd(B, L):
                    **_bound(bytes_moved, ops)})
 
 
-def _hgmma_count(name):
-    """HGMMA (wgmma) instructions in the SASS of the built library ``name``,
-    from cuobjdump; a note where the tool is missing."""
+def _mma_counts(name):
+    """(HGMMA, HMMA): wgmma and mma.sync instructions in the SASS of the
+    built library ``name``, from cuobjdump; a note for each where the tool
+    is missing or fails."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        return "cuobjdump not found: HGMMA count not measured"
+        note = "cuobjdump not found: not measured"
+        return note, note
     sass = subprocess.run([tool, "-sass", str(build.build(name))],
                           capture_output=True, text=True, timeout=120)
     if sass.returncode != 0:
-        return f"cuobjdump failed: {sass.stderr.strip()[:200]}"
-    return sum(line.count("HGMMA") for line in sass.stdout.splitlines())
+        note = f"cuobjdump failed: {sass.stderr.strip()[:200]}"
+        return note, note
+    return tuple(sum(len(re.findall(rf"\b{op}\b", line))
+                     for line in sass.stdout.splitlines())
+                 for op in ("HGMMA", "HMMA"))
+
+
+def _check_bwd_repeat(case):
+    """Two bf16 backward calls on the same inputs: dq, dk and dv bit for
+    bit, or the run dies."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    causal, window, cap = case[6:]
+    q, k, v, dout = _bwd_tensors(case, torch.bfloat16, seed=2)
+    out, lse = fa._forward(q, k, v, causal, window, cap, want_lse=True)
+    kw = dict(causal=causal, window=window, cap=cap)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip("qkv", first, again):
+        if not torch.equal(a, b):
+            die("kernels", f"flash_attention_bwd {case}: d{name} differs "
+                           f"between two calls on the same inputs")
+    return list(case)
 
 
 def phase_kernels():
@@ -766,8 +820,9 @@ def phase_kernels():
         "tolerance": TOL, "shapes": shapes,
         "path_shapes": [_time_decode(case) for case in DECODE_PATH]}
 
-    hgmma = {name: _hgmma_count(name) for name in ("flash_attention",
-                                                    "ssd_scan")}
+    counts = {name: _mma_counts(name) for name in (
+        "flash_attention", "flash_attention_bwd", "ssd_scan")}
+    hgmma = {name: c[0] for name, c in counts.items()}
     for name, count in hgmma.items():
         if count == 0:
             die("kernels", f"{name}'s library holds no HGMMA instruction: "
@@ -786,8 +841,9 @@ def phase_kernels():
 
     errs = [_check_attention_bwd(c, d) for c in ATTN_CASES
             for d in ("float32", "bfloat16")]
-    path_errs = [_check_attention_bwd((B, S, S, 14, 2, 64, True, 0, 0.0),
-                                      "bfloat16") for B, S in BWD_PATH]
+    path_errs = [_check_attention_bwd(case + (True, 0, 0.0), "bfloat16")
+                 for case in [(B, S, S, 14, 2, 64) for B, S in BWD_PATH]
+                 + [(B, S, S, H, K, D) for B, S, H, K, D in BWD_TIMED]]
     res["flash_attention_bwd"] = {
         "phase": "kernels", "ok": True, "kernel": "flash_attention_bwd",
         "cases_checked": len(errs) + len(path_errs),
@@ -796,7 +852,10 @@ def phase_kernels():
         "max_abs_err_path": max(e[0] for e in path_errs),
         "max_rel_err_path": max(e[1] for e in path_errs),
         "tolerance_of_largest_element": BWD_TOL,
-        "shapes": [_time_attention_bwd(B, S) for B, S in BWD_TIMED]}
+        "bit_equal_repeats": [_check_bwd_repeat(c) for c in BWD_REPEAT],
+        "hgmma_instructions": hgmma["flash_attention_bwd"],
+        "hmma_instructions": counts["flash_attention_bwd"][1],
+        "shapes": [_time_attention_bwd(*shape) for shape in BWD_TIMED]}
 
     errs = [max(_check_ssd(c, d)) for c in SSD_CASES
             for d in ("float32", "bfloat16")]

@@ -28,9 +28,10 @@
 //   the sequence (the most causal work) dispatched first. The q tile is
 //   loaded once by TMA; 64-key K and V tiles come by TMA
 //   (cp.async.bulk.tensor, tensor maps built on the host per call with
-//   cuTensorMapEncodeTiled) into a two-stage ring with one mbarrier per
-//   stage: thread 0 issues tile j+1 before the warpgroup computes on tile
-//   j. Only the live tiles are walked: from the window's first key up to the
+//   cuTensorMapEncodeTiled; the TMA, mbarrier and tensor-map helpers are
+//   hopper.cuh's, shared with the backward) into a two-stage ring with one
+//   mbarrier per stage: thread 0 issues tile j+1 before the warpgroup
+//   computes on tile j. Only the live tiles are walked: from the window's first key up to the
 //   diagonal. S = Q.K^T is wgmma m64n64k16 (bf16 in, f32 accumulate) with Q
 //   and K both K-major from swizzled shared memory; the softmax runs on the
 //   accumulator fragment in registers (row max across the four lanes of a
@@ -87,51 +88,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int WG_THREADS = 128;  // one warpgroup
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box of a 4-d tensor map into shared memory; completion is counted in
-// bytes on `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
 // Shared-memory geometry of one head width PD (16, 32, 64, 128 or 256).
 template <int PD>
-struct Geom {
-  static constexpr int PW = PD < 64 ? PD : 64;          // panel: one swizzle row
-  static constexpr int NP = PD / PW;                    // panels per tile
-  static constexpr uint32_t ROW = PW * 2;               // bytes per panel row
-  static constexpr uint32_t PANEL = 64 * ROW;           // a 64-row panel
-  static constexpr uint32_t TILE = NP * PANEL;          // a 64 x PD tile
-  static constexpr uint32_t GROUP = 8 * ROW;            // 8 rows: one swizzle atom
-  static constexpr uint32_t LAYOUT = PW == 64 ? 1 : PW == 32 ? 2 : 3;
+struct Geom : TileGeom<PD> {
   // q tile, two stages of K and V, three mbarriers, slack to align to 1 KB
-  static constexpr size_t SMEM = 5 * (size_t)TILE + 64 + 1024;
+  static constexpr size_t SMEM = 5 * (size_t)TileGeom<PD>::TILE + 64 + 1024;
 };
 
 // Thread 0: K and V tile `it` (keys from t0) into stage it & 1 of the ring.
@@ -178,7 +139,7 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
     mbar_init(bar_q, 1);
     mbar_init(bar_q + 8, 1);
     mbar_init(bar_q + 16, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
   if (tid == 0) {
@@ -308,51 +269,6 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
               o[p][4 * n8 + 2 * i] / denom, o[p][4 * n8 + 2 * i + 1] / denom);
       }
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime's
-// entry-point query: the library links nothing new.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// Tensor map over a (B, S, heads, D) bf16 tensor, dims innermost first
-// (D, heads, S, B), strides in elements; one box is PW head-dim columns of
-// 64 rows of one head.
-bool make_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B, long long s_h,
-              long long s_s, long long s_b, int PW) {
-  EncodeTiledFn encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_s * 2, (cuuint64_t)s_b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)PW, 1, (cuuint32_t)BK, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = PW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : PW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                            : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int PD>

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared-memory
 // addresses, the cp.async copies and their groups, the async-proxy fence,
-// wgmma matrix descriptors, the wgmma fences, and one wgmma.mma_async
-// wrapper per accumulator width (bf16 in, f32 accumulate, m64nNk16).
+// mbarriers, TMA loads (tensor-map tiles and 1-d bulk copies) and the host's
+// tensor-map encoder, wgmma matrix descriptors, the wgmma fences, and one
+// wgmma.mma_async wrapper per accumulator width (bf16 in, f32 accumulate,
+// m64nNk16).
 //
 // Accumulator fragment of a 64xN wgmma (N/2 registers a thread): register
 // 4*n8 + 2*i + j holds row warp*16 + lane/4 + 8*i, column 8*n8 + 2*(lane%4)
@@ -11,6 +13,8 @@
 
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -46,6 +50,119 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Makes the mbarrier inits visible to the async proxy (TMA); then sync.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a 4-d tensor map into shared memory; completion is counted in
+// bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory by TMA, counted on `bar`.
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const void* src, uint32_t bytes,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shared-memory geometry of a bf16 tile of `rows` rows and PD head-dim
+// columns (PD = 16, 32, 64, 128 or 256) as TMA writes it: panels of PW
+// columns, one swizzle row each (the 128-byte swizzle for 64 columns, the
+// 64- and 32-byte swizzles for 32 and 16), 8 rows to a swizzle atom.
+template <int PD, int ROWS = 64>
+struct TileGeom {
+  static constexpr int PW = PD < 64 ? PD : 64;          // panel: one swizzle row
+  static constexpr int NP = PD / PW;                    // panels per tile
+  static constexpr uint32_t ROW = PW * 2;               // bytes per panel row
+  static constexpr uint32_t PANEL = ROWS * ROW;         // one panel of the tile
+  static constexpr uint32_t TILE = NP * PANEL;          // ROWS x PD
+  static constexpr uint32_t GROUP = 8 * ROW;            // 8 rows: one swizzle atom
+  static constexpr uint32_t LAYOUT = PW == 64 ? 1 : PW == 32 ? 2 : 3;
+  // byte offset of head-dim columns [16 kk, 16 kk + 16) within a tile
+  __host__ __device__ static constexpr uint32_t k_off(int kk) {
+    return (kk * 16) / PW * PANEL + ((kk * 16) % PW) * 2;
+  }
+};
+
+// Host: cuTensorMapEncodeTiled from libcuda, looked up through the runtime's
+// entry-point query, so a library that uses it links nothing new.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Host: tensor map over a (B, S, heads, D) bf16 tensor, dims innermost first
+// (D, heads, S, B), strides in elements; one box is PW head-dim columns of
+// `rows` rows of one head, swizzled as TileGeom lays it out. Rows and
+// columns past the ends read as zeros.
+inline bool make_map(CUtensorMap* map, const void* ptr, int D, int heads, int S, int B,
+                     long long s_h, long long s_s, long long s_b, int PW, int rows = 64) {
+  EncodeTiledFn encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_s * 2, (cuuint64_t)s_b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)PW, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = PW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : PW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // wgmma shared-memory matrix descriptor: start address, leading and stride
 // byte offsets (16-byte units) and the swizzle mode (0 = none, 1 = 128B,
 // 2 = 64B, 3 = 32B).
@@ -65,6 +182,12 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// Waits until at most N committed wgmma groups are in flight (groups
+// complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving reads or writes of accumulator registers
 // across the asynchronous wgmma that owns them.
@@ -72,6 +195,14 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// The same for A-operand registers that an issued wgmma still reads.
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

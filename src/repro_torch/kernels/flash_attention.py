@@ -27,10 +27,12 @@ Query and key positions both start at 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_decode import _sm_count
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -152,9 +154,12 @@ def _vector_readable(t):
     the rows of a bf16 (B, S, heads, D) tensor as it is: the base 16-byte
     aligned and every stride of a dim longer than one a positive multiple
     of 8 elements."""
-    return t.data_ptr() % 16 == 0 and all(
-        t.stride(i) % 8 == 0 and t.stride(i) > 0
-        for i in range(3) if t.shape[i] > 1)
+    if t.data_ptr() % 16:
+        return False
+    (n0, n1, n2), (s0, s1, s2) = t.shape[:3], t.stride()[:3]
+    return ((n0 == 1 or (s0 > 0 and s0 % 8 == 0))
+            and (n1 == 1 or (s1 > 0 and s1 % 8 == 0))
+            and (n2 == 1 or (s2 > 0 and s2 % 8 == 0)))
 
 
 def check_tma_layout(q, k, v):
@@ -222,12 +227,115 @@ def _bwd_kernel():
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([I] + [P, L, L, L] * 5 + [P] * 6
-                       + [I] * 8 + [ctypes.c_float, ctypes.c_float, P])
+        fn.argtypes = ([I] + [P, L, L, L] * 5 + [P] * 7 + [I] * 8
+                       + [ctypes.c_float, ctypes.c_float, P, I, P])
         fn.restype = I
         lib.flash_attention_bwd_max_d.argtypes = []
         lib.flash_attention_bwd_max_d.restype = I
     return fn, lib.flash_attention_bwd_max_d()
+
+
+BWD_TILE = 64       # keys (dk/dv), queries (dq) a tile of the bf16 kernels
+
+
+def _bwd_width(D: int) -> int:
+    """The head width the bf16 backward runs D at: the next of 16, 32, 64,
+    128, 256."""
+    return next(w for w in (16, 32, 64, 128, 256) if w >= D)
+
+
+def bwd_panel(D: int):
+    """(accumulator columns a block owns, panels of D) of the bf16
+    backward: D runs at ``_bwd_width(D)``, split into panels of at most
+    128 columns."""
+    ap = min(_bwd_width(D), 128)
+    return ap, -(-D // ap)
+
+
+def _live_q_tiles(k0: int, Sq: int, causal: bool, window: int):
+    """(first query row, live query tiles) the bf16 dk/dv kernel walks for
+    the key tile from k0."""
+    q_lo = k0 if causal else 0
+    q_hi = min(Sq, k0 + BWD_TILE - 1 + window) if window else Sq
+    first = q_lo // BWD_TILE * BWD_TILE
+    return first, (-(-(q_hi - first) // BWD_TILE) if q_hi > first else 0)
+
+
+def _longest_dq_walk(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """Key tiles the longest bf16 dq block walks (the forward's walk)."""
+    most = 0
+    for q0 in range(0, Sq, BWD_TILE):
+        k_begin = max(0, q0 - window + 1) if window else 0
+        k_end = min(Skv, q0 + BWD_TILE) if causal else Skv
+        first = k_begin // BWD_TILE * BWD_TILE
+        if k_end > first:
+            most = max(most, -(-(k_end - first) // BWD_TILE))
+    return most
+
+
+@functools.lru_cache(maxsize=512)
+def dkdv_plan(B: int, K: int, G: int, Sq: int, Skv: int, causal: bool,
+              window: int, panels: int, slots: int):
+    """(wt, rows) of the bf16 dk/dv blocks. Key tile j of a (panel, b, kv
+    head) has G * nq_j items (its nq_j live query tiles, for each of the G
+    query heads, heads in order: item i is query head kh * G + i // nq_j,
+    query tile i % nq_j); it is cut into n_c = max(1, ceil(G * nq_j / wt))
+    runs of items, one block each. ``rows`` holds one row per block in
+    launch order, (key tile j, first live query row, nq_j, first item, end
+    item, the tile's first row, n_c, 0): the kernel reads its block's row
+    and nothing else of the plan. The launch runs these blocks first, then
+    the dq blocks longest first. wt is the larger of the dk/dv items per
+    slot of the card (``slots`` resident blocks) and the longest dq walk: no
+    block is longer than the card's share needs, and the chunks start before
+    any longer block. Where a wt at most a quarter larger fits every chunk
+    in one wave of ``slots``, it is taken: a chunk left to a second wave
+    would start only as the first ends."""
+    live = [_live_q_tiles(k0, Sq, causal, window)
+            for k0 in range(0, Skv, BWD_TILE)]
+    units = panels * B * K
+
+    def blocks(wt):
+        return sum(max(1, -(-G * n // wt)) for _, n in live)
+
+    wt = max(1, -(-units * G * sum(n for _, n in live) // slots),
+             _longest_dq_walk(Sq, Skv, causal, window))
+    if units * blocks(wt) > slots:
+        wt = next((w for w in range(wt + 1, wt + wt // 4 + 1)
+                   if units * blocks(w) <= slots), wt)
+    rows = []
+    for j, (first, n) in enumerate(live):
+        w, start = G * n, len(rows)
+        n_c = max(1, -(-w // wt))
+        rows += [(j, first, n, c * w // n_c, (c + 1) * w // n_c, start, n_c, 0)
+                 for c in range(n_c)]
+    return wt, tuple(rows)
+
+
+@functools.lru_cache(maxsize=512)
+def _dkdv_table(device, B, K, G, Sq, Skv, causal, window, panels, slots):
+    """dkdv_plan's rows as a (blocks, 8) int32 tensor on ``device``,
+    copied there once per shape (so a CUDA graph captures a call only after
+    an eager call at its shape, as warm-up before a capture gives)."""
+    _, rows = dkdv_plan(B, K, G, Sq, Skv, causal, window, panels, slots)
+    return torch.tensor(rows, dtype=torch.int32).to(device)
+
+
+_DKDV_SLOTS = {}
+
+
+def _dkdv_slots(device, D: int) -> int:
+    """dk/dv blocks the card holds at once at head dim D: the library's
+    occupancy for the kernel (registers, shared memory) times the SMs."""
+    key = (device.index, _bwd_width(D))
+    if key not in _DKDV_SLOTS:
+        lib = build.load("flash_attention_bwd")
+        fn = lib.flash_attention_bwd_dkdv_blocks_per_sm
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        per_sm = fn(D)
+        if per_sm < 1:
+            raise RuntimeError(f"flash_attention_bwd: no occupancy for D={D}")
+        _DKDV_SLOTS[key] = per_sm * _sm_count(device)
+    return _DKDV_SLOTS[key]
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -235,9 +343,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     """(dq, dk, dv) of attention given the forward's out and lse (B, H, Sq)
     f32 and the output gradient dout (B, Sq, H, D). CPU tensors run
     :func:`flash_attention_bwd_plain`; CUDA tensors launch the kernels of
-    ``csrc/flash_attention_bwd.cu`` (delta, dk/dv, in bf16 with GQA the sum
-    over each kv head's query heads, then dq: one call, one count in
-    ``flash_attention_bwd.launches``) or raise."""
+    ``csrc/flash_attention_bwd.cu`` (statistics, dk/dv, dq: one call, one
+    count in ``flash_attention_bwd.launches``) or raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, window=window,
@@ -263,24 +370,38 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
                          f"f32 (B, H, Sq) on q's device, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    # bf16 with GQA: each query head's share of dk and dv, summed after
-    part = (torch.empty((2, B, Skv, H, D), dtype=torch.float32,
-                        device=q.device)
-            if q.dtype == torch.bfloat16 and H > K else None)
+    part = count = plan = None
+    n_chunks = 0
+    if q.dtype == torch.bfloat16:
+        # one f32 scratch: the statistics (B, H, q tiles, 2, 64), a counter
+        # per (panel, b, kv head, key tile), and the f32 partials of the
+        # dk/dv chunks when a key tile is cut into several
+        ap, panels = bwd_panel(D)
+        table = _dkdv_table(q.device, B, K, H // K, Sq, Skv, bool(causal),
+                            int(window), panels, _dkdv_slots(q.device, D))
+        plan, n_chunks = table.data_ptr(), table.shape[0]
+        n_stats = B * H * -(-Sq // BWD_TILE) * 2 * BWD_TILE
+        n_count = panels * B * K * -(-Skv // BWD_TILE)
+        n_part = (panels * B * K * n_chunks * 2 * BWD_TILE * ap
+                  if n_chunks > -(-Skv // BWD_TILE) else 0)
+        off = -(-(n_stats + n_count) // 4) * 4     # partials 16-byte aligned
+        delta = torch.empty(off + n_part, dtype=torch.float32,
+                            device=q.device)     # the statistics first
+        count = delta.data_ptr() + 4 * n_stats
+        part = delta.data_ptr() + 4 * off if n_part else None
+    else:
+        delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((B, Skv, K, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Skv, K, D), dtype=v.dtype, device=q.device)
     rc = launch(
         _DTYPES[q.dtype],
         *(x for t in (q, k, v, out, dout)
-          for x in (t.data_ptr(), t.stride(0), t.stride(1), t.stride(2))),
-        lse.data_ptr(), delta.data_ptr(),
-        part.data_ptr() if part is not None else None, dq.data_ptr(),
+          for x in (t.data_ptr(), *_strides(t))),
+        lse.data_ptr(), delta.data_ptr(), part, count, dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, H // K, Sq, Skv, D,
-        int(bool(causal)),
-        int(window), float(cap), D ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        int(bool(causal)), int(window), float(cap), D ** -0.5, plan, n_chunks,
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
     if rc != 0:
         raise RuntimeError(
             f"flash_attention_bwd kernel launch failed: cudaError {rc}")

@@ -358,6 +358,82 @@ def test_flash_attention_bwd_matches_torch_autograd(case, dtype):
                                    err_msg=f"d{name}")
 
 
+def _live_q_tile_sets(Sq, Skv, causal, window):
+    """For each 64-key tile, the query tiles holding a live (q, k) pair,
+    from the mask itself."""
+    q = np.arange(Sq)[:, None]
+    k = np.arange(Skv)[None, :]
+    live = np.ones((Sq, Skv), bool)
+    if causal:
+        live &= k <= q
+    if window:
+        live &= q - k < window
+    T = fa.BWD_TILE
+    return [{t for t in range(-(-Sq // T))
+             if live[t * T:(t + 1) * T, j * T:(j + 1) * T].any()}
+            for j in range(-(-Skv // T))]
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, K, G, Sq, Skv, causal, window): the train path's qwen2-0.5b calls
+    # at (4, 256) and (1, 2048), (4, 512); G = 7 and 10 (not a multiple of
+    # the chunk count), a window, Sq != Skv both ways, qwen3-moe's G = 16,
+    # non-causal G = 1 (no key tile split)
+    (4, 2, 7, 256, 256, True, 0),
+    (1, 2, 7, 2048, 2048, True, 0),
+    (4, 2, 7, 512, 512, True, 0),
+    (1, 1, 10, 300, 300, True, 100),
+    (2, 1, 7, 100, 180, False, 0),
+    (1, 2, 10, 180, 100, True, 0),
+    (1, 4, 16, 2048, 2048, True, 0),
+    (1, 16, 1, 2048, 2048, False, 0),
+])
+@pytest.mark.parametrize("slots", [2, 264, 396])
+def test_dkdv_plan_covers_every_item_once(shape, slots):
+    """The bf16 dk/dv kernel's plan, the rows its blocks read: for every key
+    tile, rows in launch order that cover each (query head, live query
+    tile) exactly once, in head order, none longer than wt items, and whose
+    query tiles hold every live pair of the mask (exactly those where the
+    key tile is whole). wt is the larger of the items per slot and the
+    longest dq walk (so the chunks, which run first, are never shorter than
+    a dq block), or at most a quarter more where that fits every chunk in
+    one wave of ``slots``."""
+    B, K, G, Sq, Skv, causal, window = shape
+    wt, rows = fa.dkdv_plan(B, K, G, Sq, Skv, causal, window, 1, slots)
+    assert all(len(r) == 8 for r in rows)           # two int4 loads a row
+    T, n_qt = fa.BWD_TILE, -(-Sq // fa.BWD_TILE)
+    sets = _live_q_tile_sets(Sq, Skv, causal, window)
+    assert [r[0] for r in rows] == sorted(r[0] for r in rows)
+    nq = []
+    for j, want in enumerate(sets):
+        mine = [(p, r) for p, r in enumerate(rows) if r[0] == j]
+        first, n, start, n_c = mine[0][1][1], mine[0][1][2], mine[0][0], \
+            len(mine)
+        assert [p for p, _ in mine] == list(range(start, start + n_c))
+        assert all(r[1:3] == (first, n) and r[5:] == (start, n_c, 0)
+                   for _, r in mine)
+        tiles = set(range(first // T, first // T + n))
+        assert first % T == 0 and tiles <= set(range(n_qt))
+        assert want <= tiles and (want == tiles or (j + 1) * T > Skv)
+        items = [i for _, r in mine for i in range(r[3], r[4])]
+        assert items == list(range(G * n))          # in order, each once
+        assert all(0 < r[4] - r[3] <= wt for _, r in mine) or n == 0
+        nq.append(n)
+    walk = fa._longest_dq_walk(Sq, Skv, causal, window)
+    base = max(1, -(-B * K * G * sum(nq) // slots), walk)
+    assert base <= wt <= base + base // 4
+    if wt > base:                                   # bumped into one wave
+        assert B * K * len(rows) <= slots
+    if causal and not window and Sq == Skv:
+        assert walk == len(nq)                      # the last q tile's walk
+
+
+def test_bwd_panel_widths():
+    assert [fa.bwd_panel(D) for D in (16, 32, 48, 64, 80, 128, 144, 256)] == [
+        (16, 1), (32, 1), (64, 1), (64, 1), (128, 1), (128, 1), (128, 2),
+        (128, 2)]
+
+
 def test_flash_attention_bwd_refuses_devices_without_kernel():
     q = torch.zeros((1, 8, 2, 16), device="meta")
     k = torch.zeros((1, 8, 1, 16), device="meta")
@@ -678,7 +754,8 @@ def test_kernels_replay_in_a_cuda_graph():
 
 # the backward on the card: the forward's cases, then gemma2-style window +
 # softcap, D = 256 (32-row tiles, two panels), Sq != Skv both ways, G = 16,
-# and the train path's shapes (qwen2-0.5b at (8, 256), (1, 2048), (4, 512))
+# and the train path's shapes (qwen2-0.5b at (8, 256), the train phase's
+# own microbatch (4, 256), (1, 2048), (4, 512))
 BWD_CUDA_CASES = ATTN_CASES + [
     (2, 300, 300, 16, 8, 128, True, 64, 50.0),
     (1, 130, 130, 4, 2, 256, True, 0, 0.0),
@@ -686,8 +763,21 @@ BWD_CUDA_CASES = ATTN_CASES + [
     (1, 180, 100, 16, 16, 64, False, 0, 0.0),
     (1, 160, 160, 64, 4, 128, True, 0, 0.0),
     (8, 256, 256, 14, 2, 64, True, 0, 0.0),
+    (4, 256, 256, 14, 2, 64, True, 0, 0.0),
     (1, 2048, 2048, 14, 2, 64, True, 0, 0.0),
     (4, 512, 512, 14, 2, 64, True, 0, 0.0),
+    # the Hopper kernels' edges: Sq and Skv not multiples of 64 with a
+    # window (Sq != Skv both ways); D = 16 and 32 (the 32- and 64-byte
+    # swizzles); G = 7 and 10 with key tiles cut into chunks that split a
+    # head's walk; D = 80 and 144 (zero columns, two panels at 144)
+    (1, 150, 230, 7, 1, 64, True, 70, 0.0),
+    (2, 230, 150, 4, 2, 64, True, 90, 30.0),
+    (1, 200, 200, 6, 2, 16, True, 0, 0.0),
+    (1, 200, 200, 6, 2, 32, True, 50, 0.0),
+    (1, 700, 700, 14, 2, 64, True, 0, 0.0),
+    (1, 1000, 1000, 10, 1, 128, True, 300, 0.0),
+    (1, 260, 260, 4, 2, 80, True, 0, 0.0),
+    (1, 260, 260, 4, 2, 144, True, 0, 0.0),
 ]
 
 
@@ -755,3 +845,58 @@ def test_flash_attention_grad_on_the_card(dtype):
         grads[dev] = qkv.grad.cpu()
     tol = {"float32": 2e-4, "bfloat16": 2e-2}[dtype]
     assert _rel_err(grads["cuda"], grads["cpu"]) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (1, 1024, 1024, 14, 2, 64, True, 0, 0.0),      # qwen2: key tiles split
+    (2, 300, 300, 16, 1, 128, True, 64, 30.0),     # G = 16, window, softcap
+])
+def test_flash_attention_bwd_cuda_is_deterministic(case):
+    """Repeated bf16 backward calls give dq, dk and dv bit for bit: the dk/dv
+    chunks' partials are added in chunk order whichever block finishes
+    last, at cases whose early key tiles are cut into several chunks and
+    whose late ones sum all G heads in one block."""
+    _card()
+    causal, window, cap = case[6:]
+    B, Sq, Skv, H, K, D = case[:6]
+    ap, panels = fa.bwd_panel(D)
+    _, rows = fa.dkdv_plan(B, K, H // K, Sq, Skv, causal, window, panels,
+                           fa._dkdv_slots(torch.device("cuda"), D))
+    assert len(rows) > -(-Skv // fa.BWD_TILE)       # some tile is split
+    q, k, v = (_torch(a, "bfloat16").cuda() for a in _attn_inputs(case))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dout = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    out, lse = fa._forward(q, k, v, causal, window, cap, want_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                   window=window, cap=cap)
+    for _ in range(5):
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                       window=window, cap=cap)
+        torch.cuda.synchronize()
+        for name, a, b in zip("qkv", first, again):
+            assert torch.equal(a, b), f"d{name} differs between calls"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_cuda_length_one_dims(dtype):
+    """A batch of one whose tensors step over it with strides TMA cannot
+    take (autograd hands the backward such a dout): the wrapper rounds a
+    stride it never steps over, as the forward does, and the result matches
+    the plain version."""
+    _card()
+    B, S, H, K, D = 1, 200, 6, 2, 64
+    case = (B, S, S, H, K, D, True, 0, 0.0)
+    q, k, v = (_torch(a, dtype).cuda() for a in _attn_inputs(case))
+    out, lse = fa._forward(q, k, v, True, 0, 0.0, want_lse=True)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dense = torch.randn(q.shape, generator=g, device="cuda").to(q.dtype)
+    dout = torch.empty_strided(q.shape, (3, H * D, D, 1), dtype=q.dtype,
+                               device="cuda")
+    dout.copy_(dense)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dense)
+    tol = {"float32": 2e-4, "bfloat16": 2e-2}[dtype]
+    for name, a, w in zip("qkv", got, want):
+        assert _rel_err(a, w) <= tol, (name, _rel_err(a, w))
