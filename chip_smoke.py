@@ -25,19 +25,26 @@ prefill phase one per model):
              the train path's qwen2-0.5b shapes and every timed shape in
              bf16, then repeated bf16 calls bit for bit (BWD_REPEAT);
              ssd_scan over the
-             reference's SSD_CASES and the mamba2-130m prefill shapes. The
+             reference's SSD_CASES and the mamba2-130m prefill shapes; the
+             SSD backward (ssd_scan_bwd against ssd_scan_bwd_plain, with
+             and without a final-state cotangent) over SSD_BWD_CASES in f32
+             and bf16 and at the train path's mamba2-130m shapes, then
+             repeated bf16 calls bit for bit. The
              count of HGMMA (wgmma) instructions in the built
              flash_attention, flash_attention_bwd and ssd_scan libraries
-             (cuobjdump; the run dies at 0), and of HMMA (mma.sync) ones. Then
+             (cuobjdump; the run dies at 0), and of HMMA (mma.sync) ones
+             (also printed for ssd_scan_bwd, whose first version runs on
+             the CUDA cores). Then
              kernel, plain and library times at the main paths' shapes:
              device time from CUDA-graph replay and time per eager call,
              with CUDA events, and the achieved TFLOP/s, GB/s and share of
              the bound (for the backward the library is SDPA's backward
              under autograd, eager, in turns with the eager kernel, and
              the forward is timed with lse written and without); for
-             ssd_scan also, from profiled calls, the device
-             kernels per call, each pass's device time and the head group
-             in use.
+             ssd_scan and ssd_scan_bwd also, from profiled calls, the
+             device kernels per call and each pass's device time, and the
+             forward's head group in use. No PyTorch call computes the SSD
+             scan or its backward: no library time.
 4. prefill — the prefill -> decode path of every family at full width
              (random weights from a seed): qwen2-0.5b and mamba2-130m at
              (B, S) = (1, 2048) and (4, 512); recurrentgemma-2b also at
@@ -55,13 +62,15 @@ prefill phase one per model):
              the card against the CPU (llama4-maverick too, at smoke size
              only); then prefill ms per shape and a torch.profiler breakdown
              per model.
-5. train   — full-width qwen2-0.5b training (random weights from seed 0,
-             AdamW, 2 microbatches, remat) through
-             repro_torch.launch.train.train at (B, S) = (8, 256) for 8 steps
+5. train   — full-width qwen2-0.5b, then mamba2-130m, training (random
+             weights from seed 0, AdamW, 2 microbatches, remat) through
+             repro_torch.launch.train.train at (B, S) = (8, 256) for qwen2,
+             (8, 1024) for mamba2 (4 chunks of 256 a sequence), for 8 steps
              with a checkpoint every 4, on the seeded synthetic stream;
-             checks the launches per step (flash_attention 96: 24 layers x
-             2 microbatches x forward and remat recompute;
-             flash_attention_bwd 48), then resumes from the step-4
+             checks the launches per step (qwen2: flash_attention 96, 24
+             layers x 2 microbatches x forward and remat recompute,
+             flash_attention_bwd 48; mamba2: ssd_scan 96 and ssd_scan_bwd
+             48, no attention), then resumes from the step-4
              checkpoint to the same step-8 loss within 1e-3; reads the
              gradient norm of the main path's first step on its own
              weights (under the reference's init the loss does not move in
@@ -70,10 +79,11 @@ prefill phase one per model):
              batch, timed (step ms, tokens/s, peak device memory; the loss
              must fall by 0.5) and one profiled (device busy, idle share,
              device time by kind, the largest kernels), 2 steps at
-             (2, 2048), and one smoke-size gemma2-27b train step (window +
-             softcaps, Adafactor) on the card against the CPU: in f32 on
-             the reference's init, and in bf16 on conditioned weights
-             against the CPU's f32 step, every leaf's gradient and weights.
+             (2, 2048), and one smoke-size train step on the card against
+             the CPU (gemma2-27b for qwen2: window + softcaps, Adafactor;
+             mamba2-130m's own): in f32 on the reference's init, and in
+             bf16 on conditioned weights against the CPU's f32 step, every
+             leaf's gradient and weights.
 6. serve   — full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936,
              random weights from a seed) served by a Clockwork Controller and
              one Worker over TorchBackend on a RealClock; checks answers and
@@ -216,7 +226,7 @@ ATTN_TIMED = [
 # flash_attention_bwd_plain from the same out, lse and dout: ATTN_CASES in
 # f32 and bf16 (window + softcap, D=256, Sq != Skv both ways, G=10 and 16),
 # then bf16 at the train path's shapes with qwen2-0.5b's heads (B, S),
-# the train phase's own call (4, 256) (TRAIN_B / 2 per microbatch) among
+# the train phase's own call (4, 256) (8 rows in 2 microbatches) among
 # them, and at every timed shape; dq, dk and dv each within BWD_TOL of its
 # largest element (in bf16 the kernel sums p and ds products in another
 # order than the plain einsums, both from the same bf16-rounded p and ds).
@@ -242,6 +252,16 @@ SSD_CASES = [(2, 64, 3, 16, 8, 16), (1, 50, 2, 8, 16, 16),
 # operand x*dt*to_end to bf16 (the plain version takes that product in f32)
 # and carries S_in into the inter-chunk product as two bf16 parts.
 SSD_TOL = {"float32": 3e-4, "bfloat16": 4e-2}
+# the SSD backward (ssd_scan_bwd), held to ssd_scan_bwd_plain within SSD_TOL
+# of each gradient's largest element, with and without a final-state
+# cotangent: the CPU tests' cases (SSD_CASES, then four chunks with a ragged
+# tail over an odd head count), then at mamba2-130m's widths the train
+# path's microbatch (4, 1024), the long steps' (1, 2048) and a ragged L
+# over an odd head count; timed at the train path's two shapes
+SSD_BWD_CASES = SSD_CASES + [(2, 100, 5, 16, 16, 32)]
+SSD_BWD_PATH = [(4, 1024, 24, 64, 128, 256), (1, 2048, 24, 64, 128, 256),
+                (1, 700, 23, 64, 128, 256)]
+SSD_BWD_TIMED = [(4, 1024), (1, 2048)]
 # the prefill paths, each shape followed by N_DECODE greedy decode steps:
 # arch -> (B, S) of the reference's configs/shapes.py::prefill_inputs rule
 # (S the prompt; seamless: S frames and min(1024, S) tokens; llava: S rows
@@ -281,14 +301,18 @@ RESNET_REPS = 30
 FIG2_RUNS = ((1, 500), (16, 200))
 # the profile phase's timed repetitions per bucket (the profiler's default)
 PROFILE_REPS = 3
-# the train phase: full-width qwen2-0.5b (AdamW, 2 microbatches, remat)
-# through repro_torch.launch.train.train at (TRAIN_B, TRAIN_S) for
-# TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY, then resumed
-# from the first checkpoint; TRAIN_TIMED steps timed from that checkpoint,
-# and TRAIN_LONG_STEPS at (B, S) = TRAIN_LONG (one 2048-token sequence per
-# microbatch)
-TRAIN_ARCH = "qwen2-0.5b"
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 256, 8, 4
+# the train phase: full-width qwen2-0.5b, then mamba2-130m (AdamW, 2
+# microbatches, remat) through repro_torch.launch.train.train at
+# TRAIN_PATHS[arch] = (B, S) for TRAIN_STEPS steps with a checkpoint every
+# TRAIN_CKPT_EVERY, then resumed from the first checkpoint; TRAIN_TIMED
+# steps timed from that checkpoint, and TRAIN_LONG_STEPS at (B, S) =
+# TRAIN_LONG (one 2048-token sequence per microbatch). mamba2's (8, 1024)
+# gives 4 chunks of 256 a sequence (at S = 256 the chunk is the sequence
+# and every inter-chunk term of the SSD backward is zero). Each path's
+# smoke-size train step on the card against the CPU: TRAIN_SMOKE[arch]
+TRAIN_PATHS = {"qwen2-0.5b": (8, 256), "mamba2-130m": (8, 1024)}
+TRAIN_SMOKE = {"qwen2-0.5b": "gemma2-27b", "mamba2-130m": "mamba2-130m"}
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 4
 TRAIN_TIMED = 5
 TRAIN_LONG, TRAIN_LONG_STEPS = (2, 2048), 2
 # the runtime phase's open-loop workload: Poisson arrivals per model for
@@ -705,31 +729,39 @@ def _time_attention(B, Sq, Skv, H, K, D, causal, window):
                    **_bound(bytes_moved, ops)})
 
 
-def _ssd_passes(args, Q, calls=10):
-    """The device kernels of ``calls`` ssd_scan calls under torch.profiler:
-    kernels per call, each pass's name and device ms per call, and the head
-    group in use (the last template argument of ssd_chunk_output_bf16)."""
-    import re
+def _kernel_passes(call, calls=10, keys=None):
+    """The device kernels of ``calls`` calls of ``call()`` under
+    torch.profiler: kernels per call and each launch's name and device ms
+    per call. ``keys``, a list, gets the kernels' full names."""
     import torch
-    from repro_torch.kernels import ssd_scan as ss
-    ss.ssd_scan(*args, chunk=Q)
+    call()
     torch.cuda.synchronize()
 
     def run():
         for _ in range(calls):
-            ss.ssd_scan(*args, chunk=Q)
+            call()
         torch.cuda.synchronize()
 
     dev, _, sessions = _device_events(run)
-    hg = [int(m.group(1)) for e in dev for m in
-          [re.search(r"ssd_chunk_output_bf16<\d+, \d+, (\d+)>", e.key)] if m]
-    return {"head_group": hg[0] if len(hg) == 1 else
-            f"not measured: {len(hg)} output kernels in the profile",
-            "device_kernels_per_call": sum(e.count for e in dev) / calls,
+    if keys is not None:
+        keys += [e.key for e in dev]
+    return {"device_kernels_per_call": sum(e.count for e in dev) / calls,
             "profile_sessions_kernels": sessions,
             "passes": [{"name": e.key[:60], "count": e.count,
                         "ms_per_call": getattr(e, "self_device_time_total", 0)
                         / 1e3 / calls} for e in dev]}
+
+
+def _ssd_passes(args, Q):
+    """ssd_scan's passes (_kernel_passes) and the head group in use (the
+    last template argument of ssd_chunk_output_bf16)."""
+    from repro_torch.kernels import ssd_scan as ss
+    keys = []
+    res = _kernel_passes(lambda: ss.ssd_scan(*args, chunk=Q), keys=keys)
+    hg = [int(m.group(1)) for k in keys for m in
+          [re.search(r"ssd_chunk_output_bf16<\d+, \d+, (\d+)>", k)] if m]
+    return {"head_group": hg[0] if len(hg) == 1 else
+            f"not measured: {len(hg)} output kernels in the profile", **res}
 
 
 def _time_ssd(B, L):
@@ -758,6 +790,94 @@ def _time_ssd(B, L):
                    "library_note": "no single PyTorch call computes the SSD scan",
                    **_ssd_passes(args, Q),
                    **_bound(bytes_moved, ops)})
+
+
+def _ssd_bwd_tensors(case, dtype, seed=0):
+    """The forward's inputs of ``case`` and the cotangents dy and dS, drawn
+    on the card."""
+    import torch
+    B, L, H, P, N = case[:5]
+    args = _ssd_tensors(case, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    dy = torch.randn((B, L, H, P), generator=g, device="cuda").to(dtype)
+    ds = torch.randn((B, H, P, N), generator=g, device="cuda")
+    return args, dy, ds
+
+
+def _check_ssd_bwd(case, dtype, with_state):
+    """ssd_scan_bwd against ssd_scan_bwd_plain on the same inputs: (max abs
+    error of dx, ddt, da, db, dc; the largest of their errors relative to
+    each one's largest element), or the run dies."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    args, dy, ds = _ssd_bwd_tensors(case, getattr(torch, dtype))
+    ds = ds if with_state else None
+    got = ss.ssd_scan_bwd(*args, dy, ds, chunk=case[5])
+    torch.cuda.synchronize()
+    want = ss.ssd_scan_bwd_plain(*args, dy, ds, chunk=case[5])
+    abs_err, rel_err = 0.0, 0.0
+    for name, a, w in zip(("x", "dt", "a", "b", "c"), got, want):
+        if a.shape != w.shape or not torch.isfinite(a).all().item():
+            die("kernels", f"ssd_scan_bwd {case} {dtype}: d{name} "
+                           f"{tuple(a.shape)} non-finite or misshapen")
+        err = (a.float() - w.float()).abs().max().item()
+        abs_err = max(abs_err, err)
+        rel_err = max(rel_err, err / max(w.float().abs().max().item(), 1e-30))
+    if not rel_err <= SSD_TOL[dtype]:
+        die("kernels", f"ssd_scan_bwd {case} {dtype} dS={with_state}: "
+                       f"{rel_err} of the largest element > {SSD_TOL[dtype]}")
+    return abs_err, rel_err
+
+
+def _check_ssd_bwd_repeat(case):
+    """Two bf16 backward calls on the same inputs: every gradient bit for
+    bit, or the run dies."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    args, dy, ds = _ssd_bwd_tensors(case, torch.bfloat16, seed=2)
+    first = ss.ssd_scan_bwd(*args, dy, ds, chunk=case[5])
+    again = ss.ssd_scan_bwd(*args, dy, ds, chunk=case[5])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("x", "dt", "a", "b", "c"), first, again):
+        if not torch.equal(a, b):
+            die("kernels", f"ssd_scan_bwd {case}: d{name} differs between "
+                           f"two calls on the same inputs")
+    return list(case)
+
+
+def _ssd_bwd_ops(B, L, H, P, N, Q):
+    """The least operations of the SSD backward: C B^T once per chunk for
+    all heads on and below the diagonal; per head on the same pairs dy u^T,
+    the weighted scores times dy (du), and (L M) times B and C (dc, db);
+    per head and row six (P, N) products (the chunk states and G, dS_out B
+    and dS_out^T u, S_in C and S_in^T dy)."""
+    full, rest = divmod(L, Q)
+    pairs = full * Q * (Q + 1) // 2 + rest * (rest + 1) // 2
+    return B * (2 * N * pairs + H * ((4 * P + 4 * N) * pairs
+                                     + 12 * L * P * N))
+
+
+def _time_ssd_bwd(B, L):
+    """Backward kernel and plain times at one mamba2-130m train shape (no
+    final-state cotangent: the train path drops the state), and the device
+    time of each of its launches. No single PyTorch call computes the SSD
+    scan's backward, so there is no library time."""
+    import torch
+    from repro_torch.kernels import ssd_scan as ss
+    H, P, N, Q = 24, 64, 128, 256
+    args, dy, _ = _ssd_bwd_tensors((B, L, H, P, N), torch.bfloat16, seed=1)
+    times = _timed(lambda: ss.ssd_scan_bwd(*args, dy, chunk=Q),
+                   lambda: ss.ssd_scan_bwd_plain(*args, dy, chunk=Q), None)
+    bytes_moved = (3 * (B * L * H * P) * 2             # x, dy in; dx out
+                   + 2 * B * L * H * 4 + 2 * H * 4     # dt, ddt; a, da
+                   + 4 * (B * L * N) * 2)              # b, c in; db, dc out
+    return _rated({"B": B, "L": L, "H": H, "P": P, "N": N, "chunk": Q,
+                   "dtype": "bfloat16", **times,
+                   "library_note": "no single PyTorch call computes the SSD "
+                                   "scan's backward",
+                   **_kernel_passes(lambda: ss.ssd_scan_bwd(*args, dy,
+                                                            chunk=Q)),
+                   **_bound(bytes_moved, _ssd_bwd_ops(B, L, H, P, N, Q))})
 
 
 def _mma_counts(name):
@@ -821,10 +941,10 @@ def phase_kernels():
         "path_shapes": [_time_decode(case) for case in DECODE_PATH]}
 
     counts = {name: _mma_counts(name) for name in (
-        "flash_attention", "flash_attention_bwd", "ssd_scan")}
+        "flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
     hgmma = {name: c[0] for name, c in counts.items()}
     for name, count in hgmma.items():
-        if count == 0:
+        if count == 0 and name != "ssd_scan_bwd":    # its f32 CUDA cores
             die("kernels", f"{name}'s library holds no HGMMA instruction: "
                            f"its bf16 kernel does not run on the tensor cores")
     errs = [_check_attention(c, d) for c in ATTN_CASES
@@ -870,6 +990,24 @@ def phase_kernels():
         "tolerance": SSD_TOL,
         "hgmma_instructions": hgmma["ssd_scan"],
         "shapes": [_time_ssd(B, L) for B, L in PREFILL_SHAPES]}
+
+    errs = [_check_ssd_bwd(c, d, w) for c in SSD_BWD_CASES
+            for d in ("float32", "bfloat16") for w in (False, True)]
+    path_errs = [_check_ssd_bwd(c, d, w) for c in SSD_BWD_PATH
+                 for d in ("float32", "bfloat16") for w in (False, True)]
+    res["ssd_scan_bwd"] = {
+        "phase": "kernels", "ok": True, "kernel": "ssd_scan_bwd",
+        "cases_checked": len(errs) + len(path_errs),
+        "max_abs_err_cases": max(e[0] for e in errs),
+        "max_rel_err_cases": max(e[1] for e in errs),
+        "max_abs_err_path": max(e[0] for e in path_errs),
+        "max_rel_err_path": max(e[1] for e in path_errs),
+        "tolerance_of_largest_element": SSD_TOL,
+        "bit_equal_repeats": [_check_ssd_bwd_repeat(c)
+                              for c in SSD_BWD_PATH[:2]],
+        "hgmma_instructions": hgmma["ssd_scan_bwd"],
+        "hmma_instructions": counts["ssd_scan_bwd"][1],
+        "shapes": [_time_ssd_bwd(B, L) for B, L in SSD_BWD_TIMED]}
     for r in res.values():
         emit(r)
     return res
@@ -1024,7 +1162,7 @@ def _profile(run):
             "device_ms_by_kind": _by_kind(dev),
             "port_kernels": {name: sum(e.count for e in dev if name in e.key)
                              for name in ("flash_attention", "attn_bwd",
-                                          "flash_decode", "ssd_")},
+                                          "flash_decode", "ssd_", "ssd_bwd")},
             "top_kernels": [{"name": e.key[:60], "count": e.count,
                              "ms": getattr(e, "self_device_time_total", 0) / 1e3}
                             for e in top]}
@@ -1041,7 +1179,8 @@ def _counters():
     from repro_torch.kernels import ssd_scan as ss
     return {"flash_attention": fa.flash_attention,
             "flash_attention_bwd": fa.flash_attention_bwd,
-            "flash_decode": fd.flash_decode, "ssd_scan": ss.ssd_scan}
+            "flash_decode": fd.flash_decode, "ssd_scan": ss.ssd_scan,
+            "ssd_scan_bwd": ss.ssd_scan_bwd}
 
 
 def _zero_counts():
@@ -1308,7 +1447,7 @@ def _prefill_model(arch):
     n = len(shapes)
     want = {"flash_attention": per_prefill["flash_attention"] * n,
             "flash_attention_bwd": 0,
-            "ssd_scan": per_prefill["ssd_scan"] * n,
+            "ssd_scan": per_prefill["ssd_scan"] * n, "ssd_scan_bwd": 0,
             "flash_decode": per_step * N_DECODE * n}
     for (B, S), toks in generated.items():
         if toks.shape != (B, N_DECODE + 1) or not (
@@ -1361,19 +1500,25 @@ def phase_prefill():
     return res
 
 
-def _train_smoke_against_cpu():
-    """One smoke-size gemma2-27b train step (window 16, attention and final
-    softcaps, Adafactor: the config's optimizer) on the card (both attention
-    kernels) against the same step on the CPU (plain versions), same batch,
-    every leaf's gradient read back through the optimizer's state.
+def _train_smoke_against_cpu(arch):
+    """One smoke-size train step of ``arch`` (the config's optimizer;
+    gemma2-27b: window 16, attention and final softcaps, Adafactor;
+    mamba2-130m: 2 SSD layers, chunk 16 over 32 tokens, AdamW) on the card
+    (its kernels, forward and backward) against the same step on the CPU
+    (plain versions), same batch, every leaf's gradient read back through
+    the optimizer's state.
 
     In f32 (TF32 off), on the reference's init: loss within 1e-4 relative,
     grad_norm within 1e-3 relative, each leaf's gradient within 3e-4 of its
     largest element plus 1e-6 of the model's largest (the CPU tests' bound,
-    tests/test_torch_train_dense.py), every updated weight within 1e-5
-    (Adafactor's update is proportional to the gradient, at lr 1e-3).
+    tests/test_torch_train_dense.py), every updated weight within 1e-5 of
+    the optimizer's update of the card's own gradients recomputed on the
+    CPU, and, where the update is proportional to the gradient (Adafactor,
+    at lr 1e-3), of the CPU's step (AdamW's first update is lr times the
+    gradient's sign, which an element near zero may flip).
 
-    In bf16 the step runs on the same weights with the head projections at
+    In bf16 (the model's f32 leaves kept in f32, as its init makes them)
+    the step runs on the same weights with the head projections at
     1/sqrt(d_model) (_conditioned) and is held to the CPU's f32 step on
     them. On the reference's init the scores are large and the softmax all
     but one-hot, so bf16 rounding decides which key wins and the CPU's own
@@ -1398,7 +1543,7 @@ def _train_smoke_against_cpu():
     from repro_torch.models.registry import get_bundle
     from repro_torch.training.optimizer import Optimizer, get_optimizer
     from repro_torch.utils import tree_leaves, tree_map
-    cfg = get_smoke_config("gemma2-27b")
+    cfg = get_smoke_config(arch)
     init = get_bundle(cfg).init(torch.Generator().manual_seed(4))
     batch = SyntheticLM(cfg, ShapeSpec("t", "train", 32, 4), seed=0).batch(0)
     inner = get_optimizer(cfg.optimizer)
@@ -1411,8 +1556,13 @@ def _train_smoke_against_cpu():
     opt = Optimizer(inner.name, inner.spec, lambda p: {"opt": inner.init(p)},
                     update)
 
+    def cast(params, dtype, dev="cpu"):     # f32 leaves (mamba2's a_log,
+        return tree_map(lambda t: t.to(     # d_skip, norm) stay f32
+            dev, torch.float32 if t.dtype == torch.float32 else dtype,
+            copy=True), params)
+
     def run(params0, dev, dtype):
-        p = tree_map(lambda t: t.to(dev, dtype, copy=True), params0)
+        p = cast(params0, dtype, dev)
         newp, state, m = make_train_step(cfg, opt, device=dev)(
             p, opt.init(p), batch, 0)
         return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
@@ -1437,14 +1587,21 @@ def _train_smoke_against_cpu():
     gerr = max(((a - b).abs().max() / (3e-4 * b.abs().max() + 1e-6 * top)
                 ).item() for a, b in zip(got["g"], ref["g"]))
     werr = max((a - b).abs().max().item() for a, b in zip(got["w"], ref["w"]))
+    p32 = cast(init, torch.float32)
+    own, _ = inner.update(got["grads"], inner.init(p32), p32, 0)
+    werr_own = max((a - b).abs().max().item()
+                   for a, b in zip(got["w"], tree_leaves(own)))
+    proportional = cfg.optimizer == "adafactor"
     r["grads"] = {"max_err_over_bound": gerr}
-    r["weights"] = {"max_abs_err": werr, "bound": 1e-5}
+    r["weights"] = {"max_abs_err": werr, "held": proportional,
+                    "max_abs_err_own_grads": werr_own, "bound": 1e-5}
     r["control_reference_init"] = {"max_leaf_rel_err": max(leaf_rel(
         run(init, "cpu", torch.bfloat16)["g"], ref["g"]))}
     res["float32"] = r
     if not (all(v["err"] <= v["bound"] for k, v in r.items()
-                if k in ("loss", "grad_norm")) and gerr <= 1 and werr <= 1e-5):
-        die("train", f"gemma2-27b smoke train step, card vs CPU, f32: {r}")
+                if k in ("loss", "grad_norm")) and gerr <= 1
+            and werr_own <= 1e-5 and (werr <= 1e-5 or not proportional)):
+        die("train", f"{arch} smoke train step, card vs CPU, f32: {r}")
 
     cond = _conditioned(init, cfg)
     ref = run(cond, "cpu", torch.float32)
@@ -1452,7 +1609,7 @@ def _train_smoke_against_cpu():
                                                      torch.bfloat16)
     r = scalars(got, ref, {"loss": 1e-3, "grad_norm": 1e-2})
     g_card, g_ctl = leaf_rel(got["g"], ref["g"]), leaf_rel(ctl["g"], ref["g"])
-    p16 = tree_map(lambda t: t.to(torch.bfloat16, copy=True), cond)
+    p16 = cast(cond, torch.bfloat16)
     want, _ = inner.update(got["grads"], inner.init(p16), p16, 0)
     w_err = max(((a - b.float()).abs() / (2 ** -7 * b.float().abs())
                  .clamp(min=1e-30)).max().item()
@@ -1466,16 +1623,24 @@ def _train_smoke_against_cpu():
     if not (all(v["err"] <= v["bound"] for k, v in r.items()
                 if k in ("loss", "grad_norm"))
             and max(g_card) <= 5e-2 and w_err <= 1.0):
-        die("train", f"gemma2-27b smoke train step, card vs CPU's f32, "
+        die("train", f"{arch} smoke train step, card vs CPU's f32, "
                      f"bf16 on conditioned weights: {r}")
     return res
 
 
-def phase_train():
-    """Full-width qwen2-0.5b training through the entry point a user calls
-    (repro_torch.launch.train.train), resumed from its first checkpoint;
-    then timed and profiled steps, the (2, 2048) steps and the smoke-size
-    card-vs-CPU check."""
+def _ssm_layers(cfg):
+    """The Mamba2 layers of a config (each launches ssd_scan once per
+    forward)."""
+    pattern, n_groups, leftover = cfg.pattern_split()
+    return sum(k == "ssm" for k in pattern * n_groups + leftover)
+
+
+def _train_path(arch, B, S):
+    """Full-width ``arch`` training through the entry point a user calls
+    (repro_torch.launch.train.train) at (B, S), resumed from its first
+    checkpoint; then timed and profiled steps, the TRAIN_LONG steps and the
+    smoke-size card-vs-CPU check. The launch counts are read from zero just
+    before the main run and just after."""
     import shutil
     import tempfile
     import numpy as np
@@ -1489,43 +1654,45 @@ def phase_train():
     from repro_torch.models.registry import get_bundle
     from repro_torch.training.optimizer import get_optimizer
     from repro_torch.utils import tree_map
-    cfg = get_config(TRAIN_ARCH)
-    n_mb = microbatch_count(cfg, TRAIN_B)
-    layers = _attn_layers(cfg)
-    # per step: every attention layer of every microbatch runs the forward
-    # kernel once, and once more when remat recomputes its group in the
-    # backward; the backward kernel once
-    want = {"flash_attention": layers * n_mb * (2 if cfg.remat else 1),
-            "flash_attention_bwd": layers * n_mb, "flash_decode": 0,
-            "ssd_scan": 0}
-    kw = dict(smoke=False, batch=TRAIN_B, seq=TRAIN_S, log_every=1,
-              device="cuda")
+    cfg = get_config(arch)
+    n_mb = microbatch_count(cfg, B)
+    # per step: every attention (Mamba2) layer of every microbatch runs the
+    # forward kernel once, and once more when remat recomputes its group in
+    # the backward; the backward kernel once
+    fwd = n_mb * (2 if cfg.remat else 1)
+    attn, ssm = _attn_layers(cfg), _ssm_layers(cfg)
+    want = {"flash_attention": attn * fwd, "flash_attention_bwd": attn * n_mb,
+            "flash_decode": 0, "ssd_scan": ssm * fwd,
+            "ssd_scan_bwd": ssm * n_mb}
+    kw = dict(smoke=False, batch=B, seq=S, log_every=1, device="cuda")
     tmp = tempfile.mkdtemp(dir=ROOT / "build", prefix="chip_smoke_train_")
     try:
         _zero_counts()                      # the main path's run starts
         t0 = time.perf_counter()
-        losses = train(TRAIN_ARCH, steps=TRAIN_STEPS, ckpt_dir=tmp,
+        losses = train(arch, steps=TRAIN_STEPS, ckpt_dir=tmp,
                        ckpt_every=TRAIN_CKPT_EVERY, **kw)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = _read_counts()           # ... and ends
         per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
         if per_step != want:
-            die("train", f"launches per step {per_step}, expected {want}")
+            die("train", f"{arch}: launches per step {per_step}, expected "
+                         f"{want}")
         if not (len(losses) == TRAIN_STEPS and np.isfinite(losses).all()):
-            die("train", f"losses {losses}: not {TRAIN_STEPS} finite values")
+            die("train", f"{arch}: losses {losses}: not {TRAIN_STEPS} "
+                         f"finite values")
         for d in (Path(tmp), Path(tmp) / "opt"):    # resume from the first
             shutil.rmtree(d / f"step_{TRAIN_STEPS}")
         t0 = time.perf_counter()
-        resumed = train(TRAIN_ARCH, steps=TRAIN_STEPS, ckpt_dir=tmp,
+        resumed = train(arch, steps=TRAIN_STEPS, ckpt_dir=tmp,
                         ckpt_every=100, **kw)
         resume_s = time.perf_counter() - t0
         diff = abs(resumed[-1] - losses[-1])
         bound = 1e-3 + 1e-3 * abs(losses[-1])     # the reference test's
         if len(resumed) != TRAIN_STEPS - TRAIN_CKPT_EVERY or not diff <= bound:
-            die("train", f"resumed from step {TRAIN_CKPT_EVERY}: losses "
-                         f"{resumed}, last {diff} from the uninterrupted "
-                         f"run's {losses[-1]} (bound {bound})")
+            die("train", f"{arch}: resumed from step {TRAIN_CKPT_EVERY}: "
+                         f"losses {resumed}, last {diff} from the "
+                         f"uninterrupted run's {losses[-1]} (bound {bound})")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1540,8 +1707,7 @@ def phase_train():
     bundle = get_bundle(cfg)
     opt = get_optimizer(cfg.optimizer)
     step = make_train_step(cfg, opt, microbatches=n_mb, device="cuda")
-    src = SyntheticLM(cfg, ShapeSpec("custom_train", "train", TRAIN_S,
-                                     TRAIN_B), seed=0)
+    src = SyntheticLM(cfg, ShapeSpec("custom_train", "train", S, B), seed=0)
     batch = src.batch(0)
     host = bundle.init(torch.Generator().manual_seed(0))   # train()'s
     params = tree_map(lambda t: t.cuda(), host)
@@ -1561,14 +1727,14 @@ def phase_train():
         timed_losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated()
     if not timed_losses[-1] < timed_losses[0] - 0.5:
-        die("train", f"{TRAIN_TIMED} steps on one batch: losses "
+        die("train", f"{arch}: {TRAIN_TIMED} steps on one batch: losses "
                      f"{timed_losses} do not fall by 0.5")
     _zero_counts()
     prof = _profile(lambda: _wall_s(lambda: step(params, state, batch, 0)))
     prof_launches = _read_counts()          # three profiled sessions
     if {k: n / 3 for k, n in prof_launches.items()} != want:
-        die("train", f"launches in 3 profiled steps {prof_launches}, "
-                     f"expected 3 x {want}")
+        die("train", f"{arch}: launches in 3 profiled steps "
+                     f"{prof_launches}, expected 3 x {want}")
 
     B2, S2 = TRAIN_LONG
     src2 = SyntheticLM(cfg, ShapeSpec("custom_train", "train", S2, B2), seed=0)
@@ -1584,15 +1750,14 @@ def phase_train():
         long_losses.append(float(m["loss"]))
     long_peak = torch.cuda.max_memory_allocated()
     if not np.isfinite(long_losses).all():
-        die("train", f"(2, 2048) losses {long_losses}")
+        die("train", f"{arch}: (2, 2048) losses {long_losses}")
     del params, state
     torch.cuda.empty_cache()
     p50 = float(np.median(secs))
-    res = {"phase": "train", "ok": True, "model": TRAIN_ARCH,
+    res = {"phase": "train", "ok": True, "model": arch,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "optimizer": cfg.optimizer,
-           "microbatches": n_mb, "remat": cfg.remat,
-           "batch": TRAIN_B, "seq": TRAIN_S,
+           "microbatches": n_mb, "remat": cfg.remat, "batch": B, "seq": S,
            "params": param_count(bundle.spec()),
            "losses": losses, "loss_first": losses[0], "loss_last": losses[-1],
            "run_s": run_s, "resumed_losses": resumed, "resume_s": resume_s,
@@ -1602,7 +1767,7 @@ def phase_train():
            "timed_steps": {"n": len(secs), "p50_ms": p50 * 1e3,
                            "min_ms": min(secs) * 1e3,
                            "max_ms": max(secs) * 1e3},
-           "tokens_per_s": TRAIN_B * TRAIN_S / p50,
+           "tokens_per_s": B * S / p50,
            "grad_norm_reference_init": init_grad_norm,
            "timed_losses": timed_losses, "grad_norms": norms,
            "peak_device_bytes": peak, "profile_step": prof,
@@ -1610,9 +1775,16 @@ def phase_train():
                     "step_ms": [x * 1e3 for x in long_secs],
                     "tokens_per_s": B2 * S2 / min(long_secs),
                     "losses": long_losses, "peak_device_bytes": long_peak},
-           "smoke_card_vs_cpu": _train_smoke_against_cpu()}
+           "smoke_card_vs_cpu": _train_smoke_against_cpu(TRAIN_SMOKE[arch])}
     emit(res)
     return res
+
+
+def phase_train():
+    """Every train path (TRAIN_PATHS), each read on its own: {arch: its
+    result}."""
+    return {arch: _train_path(arch, B, S)
+            for arch, (B, S) in TRAIN_PATHS.items()}
 
 
 def _counting_backend(engines):
@@ -1946,7 +2118,7 @@ def phase_profile():
                "qwen2_decode": get_smoke_config("qwen2-0.5b"),
                "mamba2_decode": get_smoke_config("mamba2-130m")}
     want = {"flash_attention": 0, "flash_attention_bwd": 0, "ssd_scan": 0,
-            "flash_decode": sum(
+            "ssd_scan_bwd": 0, "flash_decode": sum(
         (PROFILE_REPS + 1) * len(buckets[mid]) * _attn_layers(cfg)
         for mid, cfg in lm_cfgs.items())}
     if launches != want:
@@ -2067,6 +2239,7 @@ def phase_runtime(store_path):
                  and q_infers > 0
                  and launches == {"flash_attention": 0,
                                   "flash_attention_bwd": 0, "ssd_scan": 0,
+                                  "ssd_scan_bwd": 0,
                                   "flash_decode": n_layers * q_infers}
                  and folded_only_fresh and host.closed)
     emit(res)
@@ -2108,9 +2281,10 @@ def main():
         for name, n in r.get("launches", {}).items():
             if n:
                 by_path[name][f"prefill {arch}"] = n
-    for name, n in train["launches"].items():
-        if n:
-            by_path[name][f"train {TRAIN_ARCH}"] = n
+    for arch, r in train.items():
+        for name, n in r["launches"].items():
+            if n:
+                by_path[name][f"train {arch}"] = n
     for arch, r in serve.items():
         by_path["flash_decode"][f"serve {arch}"] = r["flash_decode_launches"]
     by_path["flash_decode"]["runtime"] = runtime["launches"]["flash_decode"]
@@ -2154,9 +2328,11 @@ def main():
             "launches_per_prefill": {
                 a: r["launches_per_prefill"][name] for a, r in prefill.items()
                 if r.get("launches_per_prefill", {}).get(name)},
-            **({"launches_per_train_step": train["launches_per_step"][name]}
-               if name in train["launches_per_step"] and
-               train["launches_per_step"][name] else {}),
+            **({"launches_per_train_step": {
+                a: r["launches_per_step"][name] for a, r in train.items()
+                if r["launches_per_step"][name]}}
+               if any(r["launches_per_step"][name] for r in train.values())
+               else {}),
             "max_abs_err": kern[name]["max_abs_err_path"],
             **{k: shape[k] for k in timed},
             **({"library_note": shape["library_note"]}
@@ -2170,13 +2346,30 @@ def main():
         "replaces": "src/repro/models/flash_xla.py:105",
         "launches": sum(by_path["flash_attention_bwd"].values()),
         "launches_by_path": by_path["flash_attention_bwd"],
-        "launches_per_train_step": train["launches_per_step"][
+        "launches_per_train_step": train["qwen2-0.5b"]["launches_per_step"][
             "flash_attention_bwd"],
         "max_abs_err": bwd["max_abs_err_path"],
         "max_rel_err": bwd["max_rel_err_path"],
         **{k: shape[k] for k in timed},
         "library_note": shape["library_note"],
         "shape": {k: shape[k] for k in ("B", "S", "H", "K", "D", "causal",
+                                        "dtype")}})
+    # the SSD backward's times at its train path's own microbatch (4, 1024)
+    sbwd = kern["ssd_scan_bwd"]
+    shape = sbwd["shapes"][0]
+    lines.append({
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:72",
+        "launches": sum(by_path["ssd_scan_bwd"].values()),
+        "launches_by_path": by_path["ssd_scan_bwd"],
+        "launches_per_train_step": train["mamba2-130m"]["launches_per_step"][
+            "ssd_scan_bwd"],
+        "max_abs_err": sbwd["max_abs_err_path"],
+        "max_rel_err": sbwd["max_rel_err_path"],
+        **{k: shape[k] for k in timed},
+        "library_note": shape["library_note"],
+        "shape": {k: shape[k] for k in ("B", "L", "H", "P", "N", "chunk",
                                         "dtype")}})
     emit({"kernels": lines})
     print(dev["nvidia_smi"], flush=True)

@@ -31,5 +31,7 @@ def flash_decode(q, k, v, kpos, cur_index, *, window: int = 0,
 def ssd(x, dt, a, bmat, cmat, *, chunk: int = 128):
     """Model layout: x (B,L,H,P); dt (B,L,H); a (H,); b/c (B,L,N).
 
-    Returns (y (B,L,H,P), state (B,H,P,N))."""
+    Returns (y (B,L,H,P), state (B,H,P,N)). Under grad, with an input that
+    requires it, this is the SSDScan autograd.Function: differentiable on
+    the card, its backward the hand-written kernel ``ssd_scan_bwd``."""
     return _ssd.ssd_scan(x, dt, a, bmat, cmat, chunk=chunk)

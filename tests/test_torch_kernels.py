@@ -900,3 +900,156 @@ def test_flash_attention_bwd_cuda_length_one_dims(dtype):
     tol = {"float32": 2e-4, "bfloat16": 2e-2}[dtype]
     for name, a, w in zip("qkv", got, want):
         assert _rel_err(a, w) <= tol, (name, _rel_err(a, w))
+
+
+# ------------------------------------------------------- ssd_scan backward
+
+# the CPU cases, four chunks with a ragged tail over an odd head count, and
+# the train path's mamba2-130m shapes: the main run's microbatch (4, 1024),
+# the long steps' (1, 2048), a ragged L and an odd head count at full width
+SSD_BWD_CUDA_CASES = SSD_CASES + [
+    (2, 100, 5, 16, 16, 32),
+    (4, 1024, 24, 64, 128, 256),
+    (1, 2048, 24, 64, 128, 256),
+    (2, 1000, 24, 64, 128, 256),
+    (1, 700, 23, 64, 128, 256),
+    (2, 96, 4, 8, 8, 32),
+]
+
+
+def _ssd_bwd_args(case, dtype, seed=4):
+    """The forward's inputs and cotangents (dy, dS) on the card."""
+    B, L, H, P, N, _ = case
+    x, dt, a, b, c = _ssd_inputs(case)
+    rng = np.random.default_rng(seed)
+    dy = rng.standard_normal((B, L, H, P)).astype(np.float32)
+    ds = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    return (_torch(x, dtype).cuda(), torch.from_numpy(dt).cuda(),
+            torch.from_numpy(a).cuda(), _torch(b, dtype).cuda(),
+            _torch(c, dtype).cuda(), _torch(dy, dtype).cuda(),
+            torch.from_numpy(ds).cuda())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_BWD_CUDA_CASES)
+def test_ssd_scan_bwd_cuda_matches_plain(case, dtype, with_state):
+    """dx, ddt, da, db and dc within 3e-4 (f32) or 4e-2 (bf16) of the
+    largest element of each, against ssd_scan_bwd_plain on the same
+    inputs."""
+    _card()
+    *args, dy, ds = _ssd_bwd_args(case, dtype)
+    ds = ds if with_state else None
+    before = ss.ssd_scan_bwd.launches
+    got = ss.ssd_scan_bwd(*args, dy, ds, chunk=case[-1])
+    torch.cuda.synchronize()
+    assert ss.ssd_scan_bwd.launches == before + 1
+    want = ss.ssd_scan_bwd_plain(*args, dy, ds, chunk=case[-1])
+    for name, g, w in zip(("x", "dt", "a", "b", "c"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all().item(), name
+        assert _rel_err(g, w) <= SSD_TOL[dtype], (name, _rel_err(g, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_bwd_cuda_strided_views(dtype):
+    """x, b and c as views into one fused projection, x also as the
+    transpose of a (B, H, L, P) tensor, and dy with a batch stride it never
+    steps over (B = 1) and as a transposed view: read through their
+    strides, against the plain version on the same views."""
+    _card()
+    B, L, H, P, N, chunk = 1, 300, 6, 64, 128, 128
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dty = getattr(torch, dtype)
+    fused = (torch.randn((B, L, H * P + 2 * N), generator=g, device="cuda")
+             * 0.5).to(dty)
+    x = fused[..., :H * P].unflatten(-1, (H, P))
+    b, c = fused[..., H * P:H * P + N], fused[..., H * P + N:]
+    xt = (torch.randn((B, H, L, P), generator=g, device="cuda") * 0.5
+          ).to(dty).transpose(1, 2)
+    dt = torch.rand((B, L, H), generator=g, device="cuda") * 0.19 + 0.01
+    a = -(torch.rand((H,), generator=g, device="cuda") * 1.5 + 0.5)
+    dense = torch.randn((B, L, H, P), generator=g, device="cuda").to(dty)
+    odd = torch.empty_strided(dense.shape, (3, H * P, P, 1), dtype=dty,
+                              device="cuda")
+    odd.copy_(dense)
+    dyt = dense.transpose(1, 2).contiguous().transpose(1, 2)
+    for xx in (x, xt):
+        for dy in (odd, dyt):
+            got = ss.ssd_scan_bwd(xx, dt, a, b, c, dy, chunk=chunk)
+            want = ss.ssd_scan_bwd_plain(xx, dt, a, b, c, dense, chunk=chunk)
+            for name, gg, w in zip(("x", "dt", "a", "b", "c"), got, want):
+                assert _rel_err(gg, w) <= SSD_TOL[dtype], (name,
+                                                           _rel_err(gg, w))
+
+
+@pytest.mark.gpu
+def test_ssd_scan_bwd_cuda_is_deterministic():
+    """Repeated bf16 calls at the train path's (4, 1024) give every gradient
+    bit for bit: db, dc and da are sums over heads and chunks taken in a
+    fixed order."""
+    _card()
+    *args, dy, ds = _ssd_bwd_args((4, 1024, 24, 64, 128, 256), "bfloat16")
+    first = ss.ssd_scan_bwd(*args, dy, chunk=256)
+    for _ in range(3):
+        again = ss.ssd_scan_bwd(*args, dy, chunk=256)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("x", "dt", "a", "b", "c"), first, again):
+            assert torch.equal(a, b), f"d{name} differs between calls"
+
+
+@pytest.mark.gpu
+def test_ssd_scan_bwd_replays_in_a_cuda_graph():
+    """The backward captured in a CUDA graph: two replays in a row give the
+    eager result bit for bit."""
+    _card()
+    *args, dy, ds = _ssd_bwd_args((1, 600, 24, 64, 128, 256), "bfloat16")
+    fn = lambda: ss.ssd_scan_bwd(*args, dy, ds, chunk=256)  # noqa: E731
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    for _ in range(2):
+        for out in outs:
+            out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_grad_on_the_card(dtype):
+    """Autograd through ops.ssd on CUDA tensors: one forward launch and one
+    backward launch, and the gradients of every input, with cotangents on
+    y and on the final state, against the CPU's of the same values."""
+    _card()
+    case = (2, 700, 5, 64, 128, 256)
+    x, dt, a, b, c = _ssd_inputs(case)
+    rng = np.random.default_rng(5)
+    dy = rng.standard_normal(x.shape).astype(np.float32)
+    ds = rng.standard_normal((2, 5, 64, 128)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [(_torch(t, dtype) if i in (0, 3, 4) else
+                   torch.from_numpy(t)).to(dev).requires_grad_()
+                  for i, t in enumerate((x, dt, a, b, c))]
+        fwd0, bwd0 = ss.ssd_scan.launches, ss.ssd_scan_bwd.launches
+        y, state = tops.ssd(*leaves, chunk=256)
+        torch.autograd.backward(
+            [y, state], [_torch(dy, dtype).to(dev), torch.from_numpy(ds).to(dev)])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ss.ssd_scan.launches == fwd0 + 1
+            assert ss.ssd_scan_bwd.launches == bwd0 + 1
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for name, g, w in zip(("x", "dt", "a", "b", "c"), grads["cuda"],
+                          grads["cpu"]):
+        assert _rel_err(g, w) <= SSD_TOL[dtype], (name, _rel_err(g, w))

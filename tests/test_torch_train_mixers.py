@@ -2,9 +2,9 @@
 seamless-m4t-medium with its frames, llava-next-mistral-7b with its image
 rows) through the port's make_train_step against the JAX package's, at
 smoke size in f32: every leaf's gradient and update, within the bounds of
-test_torch_train_dense.py. On the CPU the SSD scan's plain version is
-differentiable by autograd; on the card its kernel has no backward yet, so
-mamba2 trains only here."""
+test_torch_train_dense.py. mamba2's SSD scan goes through the SSDScan
+autograd.Function, whose backward on the CPU is the plain version of the
+hand-written kernel the card runs (ssd_scan_bwd_plain)."""
 import pytest
 
 from test_torch_train_dense import train_step_parity
