@@ -31,10 +31,10 @@ prefill phase one per model):
              and bf16 and at the train path's mamba2-130m shapes, then
              repeated bf16 calls bit for bit. The
              count of HGMMA (wgmma) instructions in the built
-             flash_attention, flash_attention_bwd and ssd_scan libraries
-             (cuobjdump; the run dies at 0), and of HMMA (mma.sync) ones
-             (also printed for ssd_scan_bwd, whose first version runs on
-             the CUDA cores). Then
+             flash_attention, flash_attention_bwd, ssd_scan and
+             ssd_scan_bwd libraries (cuobjdump; the run dies at 0), and of
+             HMMA (mma.sync) ones; the registers and spills of the SSD
+             backward's tensor-core kernels (ptxas). Then
              kernel, plain and library times at the main paths' shapes:
              device time from CUDA-graph replay and time per eager call,
              with CUDA events, and the achieved TFLOP/s, GB/s and share of
@@ -262,6 +262,10 @@ SSD_BWD_CASES = SSD_CASES + [(2, 100, 5, 16, 16, 32)]
 SSD_BWD_PATH = [(4, 1024, 24, 64, 128, 256), (1, 2048, 24, 64, 128, 256),
                 (1, 700, 23, 64, 128, 256)]
 SSD_BWD_TIMED = [(4, 1024), (1, 2048)]
+# the SSD backward's tensor-core kernels, whose registers and spills the
+# kernels line prints
+SSD_BWD_KERNELS = ("ssd_bwd_chunk_states_bf16", "ssd_bwd_keys_bf16",
+                   "ssd_bwd_queries_bf16")
 # the prefill paths, each shape followed by N_DECODE greedy decode steps:
 # arch -> (B, S) of the reference's configs/shapes.py::prefill_inputs rule
 # (S the prompt; seamless: S frames and min(1024, S) tokens; llava: S rows
@@ -920,6 +924,7 @@ def _check_bwd_repeat(case):
 
 
 def phase_kernels():
+    from repro_torch.kernels import build
     res = {}
     errs = []
     for case in DECODE_CASES:
@@ -944,7 +949,7 @@ def phase_kernels():
         "flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
     hgmma = {name: c[0] for name, c in counts.items()}
     for name, count in hgmma.items():
-        if count == 0 and name != "ssd_scan_bwd":    # its f32 CUDA cores
+        if count == 0:
             die("kernels", f"{name}'s library holds no HGMMA instruction: "
                            f"its bf16 kernel does not run on the tensor cores")
     errs = [_check_attention(c, d) for c in ATTN_CASES
@@ -1007,6 +1012,7 @@ def phase_kernels():
                               for c in SSD_BWD_PATH[:2]],
         "hgmma_instructions": hgmma["ssd_scan_bwd"],
         "hmma_instructions": counts["ssd_scan_bwd"][1],
+        "ptxas": build.kernel_resources("ssd_scan_bwd", SSD_BWD_KERNELS),
         "shapes": [_time_ssd_bwd(B, L) for B, L in SSD_BWD_TIMED]}
     for r in res.values():
         emit(r)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -78,9 +79,32 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: Tuple[str, ...] = ()) -> str:
     """What nvcc printed when it built the current ``<name>`` library."""
-    return library_path(name).with_suffix(".log").read_text()
+    return library_path(name, defines).with_suffix(".log").read_text()
+
+
+def kernel_resources(name: str, kernels: Tuple[str, ...],
+                     defines: Tuple[str, ...] = ()) -> Dict[str, dict]:
+    """Registers and spill bytes, from ptxas's log (``-Xptxas -v``) of the
+    built ``<name>`` library, of each kernel whose entry name holds one of
+    ``kernels``, keyed by that string."""
+    out = {}
+    for entry, block in re.findall(r"Compiling entry function '([^']*)'"
+                                   r"(.*?)(?=Compiling entry|\Z)",
+                                   build_log(name, defines), re.S):
+        kernel = next((k for k in kernels if k in entry), None)
+        if kernel is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        out[kernel] = {"registers": int(regs.group(1)) if regs else None,
+                       "spill_store_bytes": int(spill.group(1)) if spill
+                       else None,
+                       "spill_load_bytes": int(spill.group(2)) if spill
+                       else None}
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -41,8 +41,8 @@
 // * bfloat16 (the models' type): tensor cores. A block is one warpgroup
 //   (128 threads). Operand tiles are staged by 16-byte cp.async, eight
 //   threads to a 128-byte row segment (zeros past the chunk, past L, past P
-//   and past N), into the swizzled layout TMA would write (Tile below), in
-//   a ring of stages.
+//   and past N), into the swizzled layout TMA would write (Tile, in
+//   ssd_common.cuh), in a ring of stages.
 //   - ssd_chunk_state_bf16, grid (B * nc * H), a four-stage ring of 64-key
 //     tiles: per head state = (xdt * to_end)^T . B_chunk, wgmma m64n64k16
 //     per 64 columns of N with both operands MN-major from shared memory
@@ -94,7 +94,7 @@
 
 #include <type_traits>
 
-#include "hopper.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
@@ -115,26 +115,6 @@ constexpr int PC = MAX_P / 16;   // p columns per thread
 constexpr int NC = MAX_N / 16;   // n columns per thread (ssd_chunk_state_f32)
 constexpr int RT = QT / 16;      // rows per thread (ssd_chunk_output_f32)
 
-// One warp: cums[i] = sum_{j <= i} dts[j] * a for i < n, in shared memory
-// (cums may be dts: each lane reads its own rows before it writes them).
-__device__ void warp_cumsum(const float* dts, float a, int n, float* cums) {
-  const int lane = threadIdx.x & 31;
-  const int seg = (n + 31) / 32;
-  const int lo = min(n, lane * seg), hi = min(n, lo + seg);
-  float part = 0.f;
-  for (int i = lo; i < hi; ++i) part += __fmul_rn(dts[i], a);
-  float incl = part;
-  for (int o = 1; o < 32; o <<= 1) {
-    const float v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  float run = incl - part;
-  for (int i = lo; i < hi; ++i) {
-    run += __fmul_rn(dts[i], a);
-    cums[i] = run;
-  }
-}
-
 // cum[i] = sum_{j <= i} dt[l0 + j] * a for the chunk's Q rows (rows at or
 // past L count as dt = 0). Needs a __syncthreads() before cum is read.
 __device__ void chunk_cumsum(const float* __restrict__ dtb, int64_t dt_sl, float a,
@@ -144,7 +124,7 @@ __device__ void chunk_cumsum(const float* __restrict__ dtb, int64_t dt_sl, float
     cum[i] = l < L ? dtb[l * dt_sl] : 0.f;
   }
   __syncthreads();
-  if (threadIdx.x < 32) warp_cumsum(cum, a, Q, cum);
+  if (threadIdx.x < 32) warp_scan<false>(cum, a, Q, cum);
 }
 
 // f32 pass 1, grid (nc, B*H): the chunk's own state into chunk_state[bh][c] (P, N),
@@ -428,85 +408,12 @@ ssd_chunk_output_f32(const float* __restrict__ x, int64_t x_sb, int64_t x_sl, in
 
 // ----------------------------------------------------------------- bf16 path
 
-constexpr int WG = 128;          // one warpgroup
-constexpr int TILE = 64;         // q rows and key rows per tile
 // Heads per output block (see the header).
 #ifndef SSD_HEAD_GROUP
 #define SSD_HEAD_GROUP 2
 #endif
 constexpr int HEAD_GROUP = SSD_HEAD_GROUP;
 constexpr int STATE_STAGES = 4;  // ring depth of the chunk-state pass
-
-// A tile of R rows by PD bf16 columns in shared memory, as wgmma reads it
-// and as TMA would write it: panels of PW = min(PD, 64) columns, each R rows
-// of PW * 2 bytes, the 16-byte chunks of a row XOR-swizzled by the row
-// (128-, 64- or 32-byte swizzle for PW = 64, 32, 16; none for PW = 8, whose
-// rows are the core matrices' own). Each tile starts on a multiple of its
-// swizzle atom (8 rows).
-template <int R, int PD>
-struct Tile {
-  static constexpr int PW = PD < 64 ? PD : 64, NP = PD / PW, NJ = PD / 8, CPR = PW / 8;
-  static constexpr uint32_t ROW = PW * 2, GROUP = 8 * ROW, PANEL = R * ROW, BYTES = NP * PANEL;
-  static constexpr uint32_t LAYOUT = PW == 64 ? 1 : PW == 32 ? 2 : PW == 16 ? 3 : 0;
-  static_assert(R % 8 == 0 && PD % 8 == 0 && NP * PW == PD, "tile shape");
-  // byte offset of chunk j (columns 8j .. 8j+7) of row r
-  static __device__ __forceinline__ uint32_t off(int r, int j) {
-    const int c = j % CPR;
-    return (j / CPR) * PANEL + r * ROW + ((c ^ ((r * ROW >> 7) & (CPR - 1))) << 4);
-  }
-  // K-major operand (rows along M or N, columns along K) at k16 step kk
-  static __device__ __forceinline__ uint64_t desc_k(uint32_t base, int kk) {
-    static_assert(PW >= 16, "a K-major operand is at least 16 columns wide");
-    return smem_desc(base + (kk * 16) / PW * PANEL + (kk * 16) % PW * 2, 16, GROUP, LAYOUT);
-  }
-  // MN-major operand (rows along K, columns along M or N): panel p, k16 step kk
-  static __device__ __forceinline__ uint64_t desc_mn(uint32_t base, int p, int kk) {
-    return smem_desc(base + p * PANEL + kk * 16 * ROW, GROUP, GROUP, LAYOUT);
-  }
-};
-
-// Rows [0, R) of a bf16 matrix whose row r starts at src + r * ld, into a
-// Tile<R, PD> by cp.async, eight threads to a 128-byte row segment; rows >=
-// rows_ok and chunks >= nj_ok are zeros.
-template <int R, int PD>
-__device__ __forceinline__ void stage_tile(uint32_t dst, const __nv_bfloat16* src, int64_t ld,
-                                           int rows_ok, int nj_ok) {
-  using T = Tile<R, PD>;
-#pragma unroll
-  for (int i = 0; i < (R * T::NJ + WG - 1) / WG; ++i) {
-    const int e = i * WG + threadIdx.x;
-    if (R * T::NJ % WG && e >= R * T::NJ) break;
-    const int r = e / T::NJ, j = e % T::NJ;
-    const bool ok = r < rows_ok && j < nj_ok;
-    cp_async16(dst + T::off(r, j), ok ? src + r * ld + j * 8 : src, ok ? 16 : 0);
-  }
-}
-
-// dt of chunk rows [0, n) of one head into dts by cp.async (zeros at or
-// past L).
-__device__ __forceinline__ void stage_dt(float* dts, const float* dtb, int64_t dt_sl, int l0,
-                                         int L, int n) {
-  for (int i = threadIdx.x; i < n; i += WG) {
-    const bool ok = l0 + i < L;
-    cp_async4(smem_u32(dts + i), ok ? dtb + (int64_t)(l0 + i) * dt_sl : dtb, ok ? 4 : 0);
-  }
-}
-
-// Eight bf16 (one chunk) times s, each product rounded to bf16.
-__device__ __forceinline__ void scale_chunk(uint4& v, float s) {
-  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    w[i] = pack_bf16(f.x * s, f.y * s);
-  }
-}
-
-// The shared memory of a block starts at a 1024-byte boundary (the 128-byte
-// swizzle's atom).
-__device__ __forceinline__ uint8_t* smem_base(uint8_t* raw) {
-  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
-}
 
 // -- pass 1: chunk states
 
@@ -570,7 +477,7 @@ ssd_chunk_state_bf16(const __nv_bfloat16* __restrict__ x, int64_t x_sb, int64_t 
     __syncthreads();                     // tile it (and dt) landed; tile it-1's readers done
     if (it == 0) {
       if (warp == 0) {
-        warp_cumsum(dts, a[h], qlen, cums);
+        warp_scan<false>(dts, a[h], qlen, cums);
         __syncwarp();
         if (lane == 0) tot[(int64_t)(b * dm.H + h) * dm.nc + c] = cums[qlen - 1];
       }
@@ -708,7 +615,7 @@ ssd_chunk_output_bf16(const __nv_bfloat16* __restrict__ x, int64_t x_sb, int64_t
   load(0);
   cp_async_wait<1>();
   __syncthreads();
-  if (warp < n_heads) warp_cumsum(dts + warp * QS, a[h0 + warp], kend, cums + warp * QS);
+  if (warp < n_heads) warp_scan<false>(dts + warp * QS, a[h0 + warp], kend, cums + warp * QS);
   __syncthreads();
 
   // Below the diagonal tile every key k precedes every query q of the tile,

@@ -18,7 +18,9 @@ heads. Returns y (B, L, H, P) in x's dtype and the final state
 Under grad the scan is :class:`SSDScan`, whose backward
 :func:`ssd_scan_bwd` launches ``csrc/ssd_scan_bwd.cu`` on a CUDA tensor
 (the reference leaves this backward to XLA's autodiff of
-``ssd_reference``) and runs :func:`ssd_scan_bwd_plain` on a CPU one.
+``ssd_reference``; bfloat16 on the tensor cores, C·Bᵀ once per group of
+heads, float32 on the CUDA cores) and runs :func:`ssd_scan_bwd_plain` on a
+CPU one.
 """
 from __future__ import annotations
 
@@ -211,18 +213,23 @@ def _check(x, dt, a, b, c, Q, limits):
         check_layout(x, b, c)
 
 
+def copyable(t):
+    """Whether the bf16 kernels' 16-byte copies can read t as it is: its
+    base 16-byte aligned and every stride of a dim longer than one, but the
+    innermost, a multiple of 8 elements."""
+    return t.data_ptr() % 16 == 0 and not any(
+        t.stride(i) % 8 for i in range(t.dim() - 1) if t.shape[i] > 1)
+
+
 def check_layout(x, b, c):
     """Raise unless the bf16 kernel's 16-byte copies can read x, b and c as
-    they are: P and N multiples of 8, each base 16-byte aligned and every
-    stride of a dim longer than one a multiple of 8 elements."""
+    they are: P and N multiples of 8, and each :func:`copyable`."""
     P, N = x.shape[-1], b.shape[-1]
     if P % 8 or N % 8:
         raise ValueError(f"ssd_scan: bf16 needs P and N multiples of 8, got "
                          f"P={P}, N={N}")
     for name, t in (("x", x), ("b", b), ("c", c)):
-        if t.data_ptr() % 16 or any(t.stride(i) % 8
-                                    for i in range(t.dim() - 1)
-                                    if t.shape[i] > 1):
+        if not copyable(t):
             raise ValueError(
                 f"ssd_scan: {name} {tuple(t.shape)} with strides "
                 f"{t.stride()} cannot be read with 16-byte copies: the base "
@@ -276,7 +283,7 @@ def _bwd_kernel():
         fn.argtypes = ([I, P, L, L, L, P, L, L, L, P, P, L, L, P, L, L,
                         P, L, L, L, P] + [P] * 6 + [I] * 6 + [P])
         fn.restype = I
-        lib.ssd_scan_bwd_scratch_floats.argtypes = [I] * 6
+        lib.ssd_scan_bwd_scratch_floats.argtypes = [I] * 7
         lib.ssd_scan_bwd_scratch_floats.restype = L
         for name in ("max_p", "max_n", "max_q"):
             getattr(lib, f"ssd_scan_bwd_{name}").argtypes = []
@@ -291,10 +298,13 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, dstate=None, *, chunk: int):
     (B,L,H,P) in x's dtype and the final state's, dstate (B,H,P,N) f32 or
     None. CPU tensors run :func:`ssd_scan_bwd_plain`; CUDA tensors launch
     the kernels of ``csrc/ssd_scan_bwd.cu`` (one call, one count in
-    ``ssd_scan_bwd.launches``) or raise. The forward's inputs are read
-    through their strides as the forward reads them; a dy whose innermost
-    dim is not contiguous (autograd's expanded zeros or ones) is made
-    contiguous first, and dstate always is."""
+    ``ssd_scan_bwd.launches``; bfloat16 on the tensor cores, float32 on the
+    CUDA cores) or raise. The forward's inputs are read through their
+    strides as the forward reads them; a dy that the kernel cannot read as
+    it is (an innermost dim that is not contiguous, as autograd's expanded
+    zeros or ones have, or for bfloat16 a stride or base that
+    :func:`copyable` refuses) is made contiguous first, and dstate always
+    is."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, a, b, c, dy, dstate, chunk=chunk)
     if x.device.type != "cuda":
@@ -307,7 +317,8 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, dstate=None, *, chunk: int):
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"ssd_scan_bwd: dy {tuple(dy.shape)} {dy.dtype} "
                          f"does not match x {tuple(x.shape)} {x.dtype}")
-    if dy.stride(-1) != 1:
+    if dy.stride(-1) != 1 or (dy.dtype == torch.bfloat16
+                              and not copyable(dy)):
         dy = dy.contiguous()
     if dstate is not None:
         if (dstate.shape != (B, H, P, N) or dstate.dtype != torch.float32
@@ -322,7 +333,8 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, dstate=None, *, chunk: int):
     da = torch.empty((H,), dtype=torch.float32, device=dev)
     db = torch.empty((B, L, N), dtype=b.dtype, device=dev)
     dc = torch.empty((B, L, N), dtype=c.dtype, device=dev)
-    scratch = torch.empty((scratch_floats(B, L, H, P, N, Q),),
+    scratch = torch.empty((scratch_floats(_DTYPES[x.dtype], B, L, H, P, N,
+                                          Q),),
                           dtype=torch.float32, device=dev)
     rc = launch(
         _DTYPES[x.dtype],

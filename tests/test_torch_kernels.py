@@ -509,6 +509,19 @@ def test_ssd_scan_refuses_layouts_16_byte_copies_cannot_read():
         ss.check_layout(x12, b, b)
 
 
+def test_copyable_refuses_what_16_byte_copies_cannot_read():
+    """copyable, which the backward's wrapper holds dy to: a head stride of
+    40 bytes or a base one element past a 16-byte boundary is refused; a
+    packed tensor, and a stride of a dim of length one, are not."""
+    x = torch.zeros((1, 8, 3, 20), dtype=torch.bfloat16)
+    assert ss.copyable(x[..., :16].contiguous())
+    assert not ss.copyable(x[..., :16])
+    assert not ss.copyable(x.flatten()[1:385].view(1, 8, 3, 16))
+    one = torch.empty_strided((1, 8, 3, 16), (3, 48, 16, 1),
+                              dtype=torch.bfloat16)
+    assert ss.copyable(one)
+
+
 def test_library_name_keys_on_defines():
     """A variant built with defines (ssd_head_groups.py's head groups) gets
     a library of its own; the port's library is the one without."""
@@ -957,8 +970,10 @@ def test_ssd_scan_bwd_cuda_matches_plain(case, dtype, with_state):
 def test_ssd_scan_bwd_cuda_strided_views(dtype):
     """x, b and c as views into one fused projection, x also as the
     transpose of a (B, H, L, P) tensor, and dy with a batch stride it never
-    steps over (B = 1) and as a transposed view: read through their
-    strides, against the plain version on the same views."""
+    steps over (B = 1), as a transposed view, and as a view whose head
+    stride (69 elements) and base the bf16 kernel's 16-byte copies cannot
+    read (the wrapper copies it first): against the plain version on the
+    same views."""
     _card()
     B, L, H, P, N, chunk = 1, 300, 6, 64, 128, 128
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -976,8 +991,12 @@ def test_ssd_scan_bwd_cuda_strided_views(dtype):
                               device="cuda")
     odd.copy_(dense)
     dyt = dense.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.zeros((B, L, H, P + 5), dtype=dty, device="cuda")
+    wide[..., 1:P + 1] = dense
+    padded = wide[..., 1:P + 1]
+    assert not ss.copyable(padded)
     for xx in (x, xt):
-        for dy in (odd, dyt):
+        for dy in (odd, dyt, padded):
             got = ss.ssd_scan_bwd(xx, dt, a, b, c, dy, chunk=chunk)
             want = ss.ssd_scan_bwd_plain(xx, dt, a, b, c, dense, chunk=chunk)
             for name, gg, w in zip(("x", "dt", "a", "b", "c"), got, want):

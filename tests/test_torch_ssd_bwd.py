@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.configs import get_smoke_config as jax_cfg
 from repro.models import ssm as jssm
@@ -145,3 +146,114 @@ def test_ssd_scan_bwd_refuses_devices_without_kernel():
     b = torch.zeros((1, 8, 4), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         ss.ssd_scan_bwd(x, b[..., :2], b[0, 0, :2], b, b, x, chunk=4)
+
+
+# ------------------------------------------- the bf16 kernel's rounding points
+
+def _bf(t):
+    """t rounded to bf16, back in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def _two_parts(s):
+    """An f32 state as the bf16 kernel carries it into a product: a high
+    bf16 part and the bf16 rounding of the rest."""
+    hi = _bf(s)
+    return hi + _bf(s - hi)
+
+
+def _bf16_kernel_emulation(x, dt, a, b, c, dy, ds, *, chunk):
+    """(dx, ddt, da, db, dc) with csrc/ssd_scan_bwd.cu's bf16 rounding
+    points, in plain f32 torch: S = C·Bᵀ and M = dy·uᵀ exact from the bf16
+    inputs (u = bf16(x·dt)); W = S∘L and X = L∘M rounded to bf16 before du,
+    dB and dC; the chunk-state operands u·to_end and dy·exp(cum) rounded to
+    bf16; S_in and dS_out as two bf16 parts in every product; the sums of
+    T = W∘M, ⟨dS_out, S_in⟩ and the outputs' f32 sums as the kernel takes
+    them. x, b, c and dy are f32 tensors holding bf16 values."""
+    Bt, L, H, Pd = x.shape
+    N = b.shape[-1]
+    Q = min(chunk, L)
+    L0 = L
+    u = _bf(x * dt[..., None])
+    xf, dyf, bf, cf = x, dy, b, c
+    if L % Q:
+        pad = Q - L % Q
+        u, xf, dyf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (u, xf, dyf))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bf, cf = (F.pad(t, (0, 0, 0, pad)) for t in (bf, cf))
+        L += pad
+    nc = L // Q
+    u_c = u.reshape(Bt, nc, Q, H, Pd)
+    dy_c = dyf.reshape(Bt, nc, Q, H, Pd)
+    b_c, c_c = bf.reshape(Bt, nc, Q, N), cf.reshape(Bt, nc, Q, N)
+    cum = torch.cumsum((dt * a).reshape(Bt, nc, Q, H), dim=2)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))[None, None, :, :,
+                                                           None]
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    lmat = torch.where(tri, torch.exp(torch.where(tri, rel, 0.0)), 0.0)
+    to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    decay_in = torch.exp(cum)
+    t_total = torch.exp(cum[:, :, -1, :])
+
+    s_chunk = torch.einsum("bcqhp,bcqn->bchpn",
+                           _bf(u_c * to_end[..., None]), b_c)
+    g_chunk = torch.einsum("bcqhp,bcqn->bchpn",
+                           _bf(dy_c * decay_in[..., None]), c_c)
+    s = torch.zeros((Bt, H, Pd, N))
+    s_in = []
+    for ci in range(nc):
+        s_in.append(s)
+        s = s * t_total[:, ci, :, None, None] + s_chunk[:, ci]
+    g = torch.zeros_like(s) if ds is None else ds
+    ds_out = [None] * nc
+    for ci in reversed(range(nc)):
+        ds_out[ci] = g
+        g = g_chunk[:, ci] + t_total[:, ci, :, None, None] * g
+    s_in, ds_out = torch.stack(s_in, dim=1), torch.stack(ds_out, dim=1)
+    s_in2, ds_out2 = _two_parts(s_in), _two_parts(ds_out)
+
+    scores = torch.einsum("bcqn,bckn->bcqk", c_c, b_c)
+    m = torch.einsum("bcqhp,bckhp->bcqkh", dy_c, u_c)
+    w = scores[..., None] * lmat
+    xm = lmat * m
+    t = w * m
+    ds_b = torch.einsum("bchpn,bckn->bckhp", ds_out2, b_c)
+    du = (torch.einsum("bcqkh,bcqhp->bckhp", _bf(w), dy_c)
+          + to_end[..., None] * ds_b)
+    dc_ = (torch.einsum("bcqkh,bckn->bcqn", _bf(xm), b_c)
+           + torch.einsum("bcqh,bchpn,bcqhp->bcqn", decay_in, s_in2, dy_c))
+    db_ = (torch.einsum("bcqkh,bcqn->bckn", _bf(xm), c_c)
+           + torch.einsum("bckh,bchpn,bckhp->bckn", to_end, ds_out2, u_c))
+    y_inter = torch.einsum("bcqn,bcqh,bchpn->bcqhp", c_c, decay_in, s_in2)
+    v = to_end * (u_c * ds_b).sum(-1)
+    dcum = t.sum(3) - t.sum(2) + (dy_c * y_inter).sum(-1) - v
+    dcum[:, :, -1] += v.sum(2) + t_total * (ds_out * s_in).sum((-2, -1))
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    dda = dda.reshape(Bt, L, H)
+    du = du.reshape(Bt, L, H, Pd)
+    ddt = dda * a + (du * xf).sum(-1)
+    return (_bf(du * dt[..., None])[:, :L0], ddt[:, :L0],
+            (dda * dt).sum((0, 1)), _bf(db_.reshape(Bt, L, N))[:, :L0],
+            _bf(dc_.reshape(Bt, L, N))[:, :L0])
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_bf16_kernel_rounding_matches_reference_vjp(with_state):
+    """The bf16 kernel's design, emulated on the CPU at mamba2-130m's widths
+    (P=64, N=128, chunk 256) over three chunks with a ragged tail and three
+    heads: every gradient within SSD_TOL["bfloat16"] of its largest element
+    of jax.vjp of ssd_reference in f32 on the same bf16 values."""
+    case = (1, 600, 3, 64, 128, 256)
+    x, dt, a, b, c = _ssd_inputs(case)
+    dy, ds = _cotangents(case)
+    x, b, c, dy = (torch.from_numpy(t).to(torch.bfloat16).float().numpy()
+                   for t in (x, b, c, dy))
+    _, vjp = jax.vjp(lambda *t: ssd_reference(*t, chunk=256),
+                     *(jnp.asarray(t) for t in (x, dt, a, b, c)))
+    want = vjp((jnp.asarray(dy),
+                jnp.asarray(ds if with_state else np.zeros_like(ds))))
+    got = _bf16_kernel_emulation(
+        *(torch.from_numpy(t) for t in (x, dt, a, b, c, dy)),
+        torch.from_numpy(ds) if with_state else None, chunk=256)
+    for name, g, w in zip(NAMES, got, want):
+        _assert_close(g, w, SSD_TOL["bfloat16"], name)
