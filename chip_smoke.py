@@ -84,7 +84,25 @@ prefill phase one per model):
              mamba2-130m's own): in f32 on the reference's init, and in
              bf16 on conditioned weights against the CPU's f32 step, every
              leaf's gradient and weights.
-6. serve   — full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936,
+6. sharded — the same paths through the mesh code
+             (distributed/steps.py::build_sharded_step): NCCL with one
+             rank, a (1, 1) ("data", "model") mesh on the card, every
+             placement Replicate. Full-width qwen2-0.5b on the train phase's
+             conditioned weights: 3 sharded train steps at (8, 256) against
+             make_train_step from the same weights (each step's loss and
+             gradient norm, the final weights and optimizer state, bit for
+             bit; 96 flash_attention and 48 flash_attention_bwd launches a
+             step), a prefill at (1, 2048) and 16 greedy decode steps
+             against the plain steps (every token and the final cache, bit
+             for bit; 24 flash_attention, 24 flash_decode a step); then
+             mamba2-130m's 2 train steps at (8, 1024) (96 ssd_scan and 48
+             ssd_scan_bwd a step), and launch.train.train(mesh_shape=(1, 1))
+             for 4 steps with a checkpoint at 2, its losses against the
+             train phase's plain launcher's and its resume from step 2, bit
+             for bit. Each with the sharded and the plain steps' times,
+             alternating (DTensor's host cost). The group is destroyed
+             however the phase ends.
+7. serve   — full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936,
              random weights from a seed) served by a Clockwork Controller and
              one Worker over TorchBackend on a RealClock; checks answers and
              that every INFER went through the kernel (24 launches each);
@@ -93,7 +111,7 @@ prefill phase one per model):
              layer: a single launch per call). Then full-width
              recurrentgemma-2b the same way: 10 requests, every one ok, 8
              flash_decode launches per INFER (its local layers).
-7. resnet  — full-width ResNet-50 (the paper's evaluation model; 224x224,
+8. resnet  — full-width ResNet-50 (the paper's evaluation model; 224x224,
              256 classes, random weights from a seed) through
              make_resnet_model: the card's bf16 logits at batch 2 against
              the port's CPU path, then per bucket INFER time on the host
@@ -103,12 +121,12 @@ prefill phase one per model):
              and 200 at batch 16, on the host clock, on CUDA events around
              the eager forward, and on CUDA events around replays of the
              forward captured in a CUDA graph (device time alone).
-8. profile — the offline profiler (repro_torch.telemetry.profiler
+9. profile — the offline profiler (repro_torch.telemetry.profiler
              build_store) over full-width ResNet-50, full-width qwen2-0.5b
              decode (qwen2_full_decode) and the profiler's default_specs();
              the store is saved, reloaded, checked for every key and printed
              as Table 1.
-9. runtime — the copied distributed runtime on the card: one Worker over
+10. runtime — the copied distributed runtime on the card: one Worker over
              TorchBackend serving both full-width models, seeded from the
              profile phase's store, behind a WorkerHost that talks to a
              ControllerServer over a LoopbackLink (every frame encoded and
@@ -285,7 +303,6 @@ PREFILL_PATHS = {
 }
 HOST_DRAWN = ("qwen2-0.5b", "mamba2-130m")
 MOE_LAYERS = 4
-ENCDEC_PRIME = 1024
 # the full-width identity (prefill vs train, decode vs train) is held for the
 # decoder-only paths; the reference holds none for enc-dec or VLM input
 IDENTITY_ARCHS = ("qwen2-0.5b", "mamba2-130m", "recurrentgemma-2b",
@@ -319,6 +336,18 @@ TRAIN_SMOKE = {"qwen2-0.5b": "gemma2-27b", "mamba2-130m": "mamba2-130m"}
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 4
 TRAIN_TIMED = 5
 TRAIN_LONG, TRAIN_LONG_STEPS = (2, 2048), 2
+# the sharded phase: the train and serve paths through build_sharded_step on
+# a one-rank ("data", "model") mesh over NCCL, held to the plain steps from
+# the same (conditioned) weights: SHARDED_TRAIN[arch] = ((B, S), steps
+# compared), then SHARDED_TIMED more steps of each, alternating, for the
+# p50s; qwen2-0.5b's prefill at SHARDED_PREFILL and N_DECODE greedy decode
+# steps; the meshed launcher for SHARDED_LAUNCH_STEPS steps at the train
+# path's shape, a checkpoint every SHARDED_LAUNCH_CKPT, resumed from the
+# first
+SHARDED_TRAIN = {"qwen2-0.5b": ((8, 256), 3), "mamba2-130m": ((8, 1024), 2)}
+SHARDED_TIMED = 4
+SHARDED_PREFILL = (1, 2048)
+SHARDED_LAUNCH_STEPS, SHARDED_LAUNCH_CKPT = 4, 2
 # the runtime phase's open-loop workload: Poisson arrivals per model for
 # RUNTIME_S seconds. The loop sends the next request only after the INFER
 # it is blocked in (qwen2's take ~45 ms), so 25 r/s per model sends ~34/s
@@ -1199,23 +1228,25 @@ def _read_counts():
 
 
 def _inputs(cfg, B, S, gen):
-    """A prefill batch on the host by the reference's
-    configs/shapes.py::prefill_inputs rule (frames and image rows in bf16 at
-    the embedding table's std, d_model**-0.5), drawn from ``gen``, and the
+    """A prefill batch on the host: the shapes and dtypes of the port's
+    configs/shapes.py::prefill_inputs at (B, S), the values drawn from
+    ``gen`` (frames and image rows, then tokens: rows at the embedding
+    table's std, d_model**-0.5; token ids uniform over the vocab), and the
     length decode continues at (image rows included)."""
     import torch
-    d = cfg.d_model
-    rows = lambda n: (torch.randn((B, n, d), generator=gen)    # noqa: E731
-                      * d ** -0.5).to(torch.bfloat16)
-    batch, n_tok = {}, S
-    if cfg.is_encdec:
-        n_tok = min(ENCDEC_PRIME, S)
-        batch["frames"] = rows(S)
-    elif cfg.modality == "image_patches":
-        n_tok = S - cfg.img_tokens
-        batch["image_embeds"] = rows(cfg.img_tokens)
-    batch["tokens"] = torch.randint(0, cfg.vocab_size, (B, n_tok),
-                                    generator=gen)
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.shapes import prefill_inputs
+    spec = prefill_inputs(cfg, ShapeSpec("prefill", "prefill", S, B))
+    batch = {}
+    for k, t in sorted(spec.items(), key=lambda kv: kv[1].is_floating_point(),
+                       reverse=True):      # the rows first
+        if t.is_floating_point():
+            batch[k] = (torch.randn(t.shape, generator=gen)
+                        * cfg.d_model ** -0.5).to(t.dtype)
+        else:
+            batch[k] = torch.randint(0, cfg.vocab_size, t.shape,
+                                     generator=gen, dtype=t.dtype)
+    n_tok = batch["tokens"].shape[1]
     return batch, S if cfg.modality == "image_patches" else n_tok
 
 
@@ -1641,6 +1672,18 @@ def _ssm_layers(cfg):
     return sum(k == "ssm" for k in pattern * n_groups + leftover)
 
 
+def _train_launches(cfg, n_mb):
+    """The launches of one train step in ``n_mb`` microbatches: every
+    attention (Mamba2) layer of every microbatch runs the forward kernel
+    once, and once more when remat recomputes its group in the backward;
+    the backward kernel once."""
+    fwd = n_mb * (2 if cfg.remat else 1)
+    attn, ssm = _attn_layers(cfg), _ssm_layers(cfg)
+    return {"flash_attention": attn * fwd, "flash_attention_bwd": attn * n_mb,
+            "flash_decode": 0, "ssd_scan": ssm * fwd,
+            "ssd_scan_bwd": ssm * n_mb}
+
+
 def _train_path(arch, B, S):
     """Full-width ``arch`` training through the entry point a user calls
     (repro_torch.launch.train.train) at (B, S), resumed from its first
@@ -1654,22 +1697,16 @@ def _train_path(arch, B, S):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.distributed.steps import make_train_step
-    from repro_torch.launch.train import microbatch_count, train
+    from repro_torch.distributed.steps import (make_train_step,
+                                               microbatches_for)
+    from repro_torch.launch.train import train
     from repro_torch.models.params import param_count
     from repro_torch.models.registry import get_bundle
     from repro_torch.training.optimizer import get_optimizer
     from repro_torch.utils import tree_map
     cfg = get_config(arch)
-    n_mb = microbatch_count(cfg, B)
-    # per step: every attention (Mamba2) layer of every microbatch runs the
-    # forward kernel once, and once more when remat recomputes its group in
-    # the backward; the backward kernel once
-    fwd = n_mb * (2 if cfg.remat else 1)
-    attn, ssm = _attn_layers(cfg), _ssm_layers(cfg)
-    want = {"flash_attention": attn * fwd, "flash_attention_bwd": attn * n_mb,
-            "flash_decode": 0, "ssd_scan": ssm * fwd,
-            "ssd_scan_bwd": ssm * n_mb}
+    n_mb = microbatches_for(cfg, B, 1)
+    want = _train_launches(cfg, n_mb)
     kw = dict(smoke=False, batch=B, seq=S, log_every=1, device="cuda")
     tmp = tempfile.mkdtemp(dir=ROOT / "build", prefix="chip_smoke_train_")
     try:
@@ -1744,7 +1781,7 @@ def _train_path(arch, B, S):
 
     B2, S2 = TRAIN_LONG
     src2 = SyntheticLM(cfg, ShapeSpec("custom_train", "train", S2, B2), seed=0)
-    step2 = make_train_step(cfg, opt, microbatches=microbatch_count(cfg, B2),
+    step2 = make_train_step(cfg, opt, microbatches=microbatches_for(cfg, B2, 1),
                             device="cuda")
     torch.cuda.reset_peak_memory_stats()
     long_secs, long_losses = [], []
@@ -1791,6 +1828,255 @@ def phase_train():
     result}."""
     return {arch: _train_path(arch, B, S)
             for arch, (B, S) in TRAIN_PATHS.items()}
+
+
+def _whole(t):
+    """A DTensor's local tensor, which on one rank is the whole tensor."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _tree_diff(a, b):
+    """(bit for bit equal, largest |a - b|) over two trees of one
+    structure."""
+    import torch
+    from repro_torch.utils import tree_leaves
+    pairs = [(x, _whole(y)) for x, y in zip(tree_leaves(a), tree_leaves(b))]
+    return (all(x.dtype == y.dtype and torch.equal(x, y) for x, y in pairs),
+            max((x.float() - y.float()).abs().max().item() for x, y in pairs))
+
+
+def _all_replicate(step):
+    """Whether every argument of ``step`` is laid out Replicate (as every
+    placement on a one-rank mesh is)."""
+    from repro_torch.utils import tree_leaves_like
+    return all(p.is_replicate()
+               for a, sh in zip(step.abstract, step.in_shardings)
+               if sh is not None for pl in tree_leaves_like(sh, a)
+               for p in pl)
+
+
+def _sharded_train(arch, mesh, params):
+    """SHARDED_TRAIN[arch]'s steps of build_sharded_step against
+    make_train_step from ``params``: launches, per-step loss and grad_norm,
+    the final weights and optimizer state, then both steps' times."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.steps import (build_sharded_step,
+                                               make_train_step,
+                                               microbatches_for)
+    from repro_torch.training.optimizer import get_optimizer
+    cfg = get_config(arch)
+    (B, S), n = SHARDED_TRAIN[arch]
+    shape = ShapeSpec("custom_train", "train", S, B)
+    opt = get_optimizer(cfg.optimizer)
+    n_mb = microbatches_for(cfg, B, 1)
+    plain = make_train_step(cfg, opt, microbatches=n_mb, device="cuda")
+    sharded = build_sharded_step(cfg, mesh, shape)
+    want = _train_launches(cfg, n_mb)
+    src = SyntheticLM(cfg, shape, seed=0)
+    batches = [src.batch(i) for i in range(n)]
+    state = opt.init(params)
+    p, s, ref = params, state, []
+    for i, b in enumerate(batches):
+        p, s, m = plain(p, s, b, i)
+        ref.append([float(m["loss"]), float(m["grad_norm"])])
+    _zero_counts()                          # the sharded run starts
+    sp, ss, got = params, state, []
+    for i, b in enumerate(batches):
+        sp, ss, m = sharded.fn(sp, ss, b, i)
+        got.append([float(_whole(m["loss"])), float(_whole(m["grad_norm"]))])
+    torch.cuda.synchronize()
+    launches = _read_counts()               # ... and ends
+    per_step = {k: v / n for k, v in launches.items()}
+    if per_step != want:
+        die("sharded", f"{arch} train: launches per step {per_step}, "
+                       f"expected {want}")
+    p_equal, p_diff = _tree_diff(p, sp)
+    s_equal, s_diff = _tree_diff(s, ss)
+    bit_equal = got == ref and p_equal and s_equal
+    loss_diff = max(abs(g[0] - r[0]) for g, r in zip(got, ref))
+    norm_rel = max(abs(g[1] - r[1]) / r[1] for g, r in zip(got, ref))
+    # not bit-equal: the train phase's resume bound on the loss, 1e-3
+    # relative on the gradient norm
+    if not bit_equal and not (
+            all(abs(g[0] - r[0]) <= 1e-3 + 1e-3 * abs(r[0])
+                for g, r in zip(got, ref)) and norm_rel <= 1e-3):
+        die("sharded", f"{arch} train: sharded {got} vs plain {ref}")
+    secs = {"plain": [], "sharded": []}
+    for _ in range(SHARDED_TIMED):          # alternating, on one batch
+        secs["plain"].append(_wall_s(lambda: plain(p, s, batches[0], 0)))
+        secs["sharded"].append(_wall_s(
+            lambda: sharded.fn(sp, ss, batches[0], 0)))
+    return {"batch": B, "seq": S, "steps": n, "microbatches": n_mb,
+            "mode": sharded.rules["_mode"],
+            "all_replicate": _all_replicate(sharded),
+            "losses": got, "plain_losses_grad_norms": ref,
+            "bit_equal": bit_equal, "max_loss_diff": loss_diff,
+            "max_grad_norm_rel_diff": norm_rel,
+            "max_param_diff": p_diff, "max_opt_state_diff": s_diff,
+            "launches": launches, "launches_per_step": per_step,
+            "launches_per_step_expected": want,
+            "step_ms": {k: {"p50": float(np.median(v)) * 1e3,
+                            "min": min(v) * 1e3, "max": max(v) * 1e3,
+                            "n": len(v)} for k, v in secs.items()}}
+
+
+def _sharded_serve(arch, mesh, params):
+    """Prefill at SHARDED_PREFILL and N_DECODE greedy decode steps through
+    build_sharded_step against the plain steps from ``params``: launches,
+    every token and the final cache, bit for bit; per-call times."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.steps import (build_sharded_step,
+                                               make_decode_step,
+                                               make_prefill_step)
+    cfg = get_config(arch)
+    B, S = SHARDED_PREFILL
+    batch, start = _inputs(cfg, B, S, torch.Generator().manual_seed(1))
+    L = start + N_DECODE
+    pre = build_sharded_step(cfg, mesh, ShapeSpec("prefill", "prefill", S, B),
+                             cache_len=L)
+    dec = build_sharded_step(cfg, mesh, ShapeSpec("decode", "decode", L, B))
+    plain_pre = make_prefill_step(cfg, cache_len=L)
+    plain_dec = make_decode_step(cfg)
+    secs = {k: [] for k in ("plain_prefill", "sharded_prefill",
+                            "plain_decode", "sharded_decode")}
+
+    def run(prefill, decode, kind):
+        out = {}
+        secs[f"{kind}_prefill"].append(_wall_s(
+            lambda: out.update(r=prefill(params, batch))))
+        tok, cache = out["r"]
+        toks = [_whole(tok)]
+        for i in range(N_DECODE):
+            secs[f"{kind}_decode"].append(_wall_s(
+                lambda: out.update(r=decode(params, cache, tok, start + i))))
+            tok, cache = out["r"]
+            toks.append(_whole(tok))
+        return torch.cat(toks, dim=1).cpu(), cache
+
+    want_toks, want_cache = run(plain_pre, plain_dec, "plain")
+    _zero_counts()                          # the sharded run starts
+    got_toks, got_cache = run(pre.fn, dec.fn, "sharded")
+    torch.cuda.synchronize()
+    launches = _read_counts()               # ... and ends
+    layers = _attn_layers(cfg)
+    want = {"flash_attention": layers, "flash_attention_bwd": 0,
+            "flash_decode": layers * N_DECODE, "ssd_scan": 0,
+            "ssd_scan_bwd": 0}
+    if launches != want:
+        die("sharded", f"{arch} serve: launches {launches}, expected {want}")
+    cache_equal, cache_diff = _tree_diff(want_cache, got_cache)
+    tokens_equal = torch.equal(want_toks, got_toks)
+    if not (tokens_equal and cache_equal):
+        die("sharded", f"{arch} serve: tokens {got_toks.tolist()} vs plain "
+                       f"{want_toks.tolist()}; cache max diff {cache_diff}")
+    for _ in range(2):                      # two more prefills of each
+        secs["plain_prefill"].append(_wall_s(lambda: plain_pre(params, batch)))
+        secs["sharded_prefill"].append(_wall_s(lambda: pre.fn(params, batch)))
+    return {"batch": B, "seq": S, "cache_len": L, "decode_steps": N_DECODE,
+            "prefill_mode": pre.rules["_mode"],
+            "decode_mode": dec.rules["_mode"],
+            "tokens_bit_equal": tokens_equal, "cache_bit_equal": cache_equal,
+            "cache_max_diff": cache_diff, "tokens": got_toks.tolist(),
+            "launches": launches, "launches_expected": want,
+            "ms": {k: {"p50": float(np.median(v)) * 1e3, "n": len(v)}
+                   for k, v in secs.items()}}
+
+
+def _sharded_launcher(train_res):
+    """qwen2-0.5b through launch.train.train(mesh_shape=(1, 1)): its
+    launches, its losses against the train phase's plain launcher's (same
+    seed and data), and a resume from its first checkpoint, bit for bit."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.steps import microbatches_for
+    from repro_torch.launch.train import train
+    arch = "qwen2-0.5b"
+    B, S = TRAIN_PATHS[arch]
+    cfg = get_config(arch)
+    want = _train_launches(cfg, microbatches_for(cfg, B, 1))
+    n = SHARDED_LAUNCH_STEPS
+    kw = dict(smoke=False, batch=B, seq=S, log_every=1, device="cuda",
+              mesh_shape=(1, 1))
+    tmp = tempfile.mkdtemp(dir=ROOT / "build", prefix="chip_smoke_sharded_")
+    try:
+        _zero_counts()                      # the meshed launcher starts
+        losses = train(arch, steps=n, ckpt_dir=tmp,
+                       ckpt_every=SHARDED_LAUNCH_CKPT, **kw)
+        torch.cuda.synchronize()
+        launches = _read_counts()           # ... and ends
+        per_step = {k: v / n for k, v in launches.items()}
+        if per_step != want:
+            die("sharded", f"launcher: launches per step {per_step}, "
+                           f"expected {want}")
+        for d in (Path(tmp), Path(tmp) / "opt"):
+            shutil.rmtree(d / f"step_{n}")
+        resumed = train(arch, steps=n, ckpt_dir=tmp, ckpt_every=100, **kw)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if resumed != losses[SHARDED_LAUNCH_CKPT:]:
+        die("sharded", f"launcher: resumed from step {SHARDED_LAUNCH_CKPT}: "
+                       f"{resumed}, uninterrupted {losses}")
+    plain = train_res[arch]["losses"][:n]
+    diff = max(abs(a - b) for a, b in zip(losses, plain))
+    if not all(abs(a - b) <= 1e-3 + 1e-3 * abs(b)
+               for a, b in zip(losses, plain)):
+        die("sharded", f"launcher: losses {losses} vs the plain "
+                       f"launcher's {plain}")
+    return {"steps": n, "losses": losses, "resumed_losses": resumed,
+            "resume_bit_equal": True, "plain_launcher_losses": plain,
+            "equal_to_plain_launcher": losses == plain,
+            "max_diff_to_plain_launcher": diff, "launches": launches,
+            "launches_per_step": per_step}
+
+
+def phase_sharded(train_res):
+    """The sharded phase (see SHARDED_TRAIN): NCCL with one rank, a (1, 1)
+    mesh, qwen2-0.5b's train, prefill and decode, mamba2-130m's train, the
+    meshed launcher. The group is destroyed however the phase ends."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils import tree_map
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        res = {}
+        for arch in SHARDED_TRAIN:
+            cfg = get_config(arch)
+            host = get_bundle(cfg).init(torch.Generator().manual_seed(0))
+            params = tree_map(lambda t: t.cuda(), _conditioned(host, cfg))
+            del host
+            r = {"phase": "sharded", "ok": True, "model": arch,
+                 "mesh": {"shape": [1, 1], "axes": ["data", "model"],
+                          "backend": "nccl"},
+                 "train": _sharded_train(arch, mesh, params)}
+            if arch == "qwen2-0.5b":
+                r["serve"] = _sharded_serve(arch, mesh, params)
+            del params
+            torch.cuda.empty_cache()
+            emit(r)
+            res[arch] = r
+        r = {"phase": "sharded", "ok": True, "model": "qwen2-0.5b",
+             "launcher": _sharded_launcher(train_res)}
+        emit(r)
+        res["launcher"] = r
+    finally:
+        dist.destroy_process_group()
+    return res
 
 
 def _counting_backend(engines):
@@ -2277,6 +2563,7 @@ def main():
     kern = phase_kernels()
     prefill = phase_prefill()
     train = phase_train()
+    sharded = phase_sharded(train)
     serve = phase_serve()
     phase_resnet()
     runtime = phase_runtime(phase_profile())
@@ -2291,6 +2578,11 @@ def main():
         for name, n in r["launches"].items():
             if n:
                 by_path[name][f"train {arch}"] = n
+    for r in sharded.values():
+        for part in ("train", "serve", "launcher"):
+            for name, n in r.get(part, {}).get("launches", {}).items():
+                if n:
+                    by_path[name][f"sharded {r['model']} {part}"] = n
     for arch, r in serve.items():
         by_path["flash_decode"][f"serve {arch}"] = r["flash_decode_launches"]
     by_path["flash_decode"]["runtime"] = runtime["launches"]["flash_decode"]

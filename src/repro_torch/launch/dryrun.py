@@ -1,0 +1,316 @@
+"""Multi-pod dry run (port of ``repro.launch.dryrun``): run every
+(architecture x input-shape) cell's sharded step on the production meshes
+and record memory, flops and collectives per rank, with no device and no
+allocation.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-27b \\
+        --shape decode_32k --mesh single --out experiments/dryrun
+
+or every cell with --all, one process per cell.
+
+A cell initialises a ``fake`` process group whose world size is the mesh's
+size (256 or 512), builds the production mesh of CPU ranks and runs
+``build_sharded_step``'s ``fn`` once, as rank 0, on DTensors whose local
+shards are fake tensors (``FakeTensorMode``): every op runs on shapes only,
+so a 400B-parameter cell takes a few GB of host memory. Collectives run
+through the fake group and move nothing. The step is eager, so every layer
+runs and there is no loop nest to correct (the reference's ``looped``
+totals equal the plain ones here, and the reference's HLO parser has no
+counterpart). What it records, per rank, as rank 0 sees it:
+
+* flops: each local op's count by ``torch.utils.flop_counter``'s formulas.
+  CPU shards run the kernels' plain versions, so these are the plain
+  versions' flops (attention's full masked scores, the plain SSD scan);
+* collectives: every functional collective the DTensors issue
+  (``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+  ``all_to_all_single``, ...) by kind, with its input bytes;
+* memory: the local bytes of the arguments and outputs, and the peak: the
+  arguments plus the most bytes the step's own local tensors held at once.
+
+These are counts on the CPU's fake group, not measurements of any device.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+import weakref
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves as pytree_leaves
+
+from repro_torch.configs import ARCH_NAMES, SHAPES, get_config
+from repro_torch.configs.base import shape_applicable
+from repro_torch.configs.shapes import decode_cache_len
+from repro_torch.distributed.steps import build_sharded_step
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.utils import tree_leaves, tree_leaves_like, tree_unflatten
+
+UNMEASURED = ("no compiled program: the eager step's bytes accessed, "
+              "transcendentals, temporary buffers and HLO text are not "
+              "counted")
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int):
+    """A ``fake`` process group of ``world_size`` ranks, this process as
+    rank 0, destroyed on exit."""
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401  registers "fake"
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+class _Recorder(TorchDispatchMode):
+    """Per-rank flops, collectives and memory of the local ops on one fake
+    mode's tensors. An op on DTensors is handed back to DTensor
+    (NotImplemented), whose local ops then come through here; nothing is
+    counted while ``paused`` (DTensor's propagation of global shapes). The
+    peak is the most bytes the storages made by counted ops held at once,
+    each freed when its storage dies (``MemTracker`` would count the
+    global-shape tensors of the propagation too)."""
+
+    def __init__(self, fake_mode):
+        super().__init__()
+        self.fake_mode = fake_mode
+        self.paused = 0
+        self.flops = 0
+        self.collectives = []
+        self.live, self.peak, self._sizes = 0, 0, {}
+
+    def _free(self, key):
+        self.live -= self._sizes.pop(key)
+
+    def _track(self, out):
+        for t in pytree_leaves(out):
+            if not (isinstance(t, torch.Tensor)
+                    and getattr(t, "fake_mode", None) is self.fake_mode):
+                continue
+            st = t.untyped_storage()
+            if st._cdata in self._sizes:
+                continue
+            self._sizes[st._cdata] = st.nbytes()
+            self.live += st.nbytes()
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, st._cdata)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils.flop_counter import flop_registry
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if self.paused:
+            return out
+        ts = [t for t in pytree_leaves((args, kwargs))
+              if isinstance(t, torch.Tensor)]
+        if ts and all(getattr(t, "fake_mode", None) is self.fake_mode
+                      for t in ts):
+            self._track(out)
+            packet = func._overloadpacket
+            name = packet.__name__
+            if func.namespace == "_c10d_functional" and name != "wait_tensor":
+                x = ts[0]
+                self.collectives.append(
+                    {"kind": name,
+                     "operand_bytes": x.numel() * x.element_size()})
+            elif packet in flop_registry:
+                self.flops += int(flop_registry[packet](*args, **kwargs,
+                                                        out_val=out))
+        return out
+
+
+def _local_bytes(tree) -> int:
+    return sum(t.to_local().numel() * t.to_local().element_size()
+               if isinstance(t, DTensor) else t.numel() * t.element_size()
+               for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+def fake_arguments(step, fake_mode):
+    """``step.abstract`` as DTensors on ``step.mesh`` laid out by
+    ``step.in_shardings``, each local shard a fake tensor of its local
+    shape: nothing is allocated."""
+    mesh = step.mesh
+
+    def one(abs_tree, sh_tree):
+        out = []
+        for t, pl in zip(tree_leaves(abs_tree),
+                         tree_leaves_like(sh_tree, abs_tree)):
+            local_shape = list(t.shape)     # the rules shard evenly
+            for i, p in enumerate(pl):
+                if p.is_shard():
+                    local_shape[p.dim] //= mesh.size(i)
+            with fake_mode:
+                local = torch.empty(local_shape, dtype=t.dtype)
+            out.append(DTensor.from_local(local, mesh, pl))
+        return tree_unflatten(abs_tree, out)
+
+    return tuple(one(a, s) if s is not None else a
+                 for a, s in zip(step.abstract, step.in_shardings))
+
+
+@contextlib.contextmanager
+def _dtensor_internals_unrecorded(rec):
+    """Keep two pieces of DTensor's own machinery out of the counts.
+
+    * Sharding propagation runs each new op once on fake tensors of its
+      global shape, to learn the output's shape; it takes the active fake
+      mode, so ``rec`` pauses while it runs.
+    * DTensor finds a strided shard's offsets with ``torch.arange(n)`` and
+      ``.tolist()``, which a fake mode cannot answer: that helper runs
+      outside the fake mode (its tensors are index lists of one dim)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    from torch.distributed.tensor.placement_types import _StridedShard
+    offsets = _StridedShard.local_shard_size_and_offset
+    shapes = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    def unfaked(self, *args, **kwargs):
+        with unset_fake_temporarily():
+            return offsets(self, *args, **kwargs)
+
+    def paused(self, *args, **kwargs):
+        rec.paused += 1
+        try:
+            return shapes(self, *args, **kwargs)
+        finally:
+            rec.paused -= 1
+
+    _StridedShard.local_shard_size_and_offset = unfaked
+    ShardingPropagator._propagate_tensor_meta_non_cached = paused
+    try:
+        yield
+    finally:
+        _StridedShard.local_shard_size_and_offset = offsets
+        ShardingPropagator._propagate_tensor_meta_non_cached = shapes
+
+
+def measure(step, cur_index: int = 0) -> dict:
+    """Run ``step.fn`` once on fake arguments; the per-rank counts."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
+    args = list(fake_arguments(step, fake_mode))
+    if step.kind in ("train", "decode"):       # step / cur_index: an int
+        args[-1] = cur_index
+    rec = _Recorder(fake_mode)
+    t0 = time.time()
+    with _dtensor_internals_unrecorded(rec), fake_mode, rec:
+        out = step.fn(*args)
+    arg_bytes = _local_bytes(args)
+    by_kind = {}
+    for op in rec.collectives:
+        e = by_kind.setdefault(op["kind"], {"count": 0, "operand_bytes": 0})
+        e["count"] += 1
+        e["operand_bytes"] += op["operand_bytes"]
+    coll_bytes = sum(op["operand_bytes"] for op in rec.collectives)
+    return {
+        "mode": step.rules.get("_mode"),
+        # context mode's K/V (or cache) are gathered over the model axis
+        # for the local kernel call; the reference combines partial
+        # softmaxes across it instead
+        "context_attention": ("gathered" if step.rules.get("_mode")
+                              == "context" else None),
+        "devices": int(step.mesh.size()),
+        "run_s": round(time.time() - t0, 2),
+        "memory": {
+            "argument_bytes": arg_bytes,
+            "output_bytes": _local_bytes(out),
+            "temp_bytes": None,
+            "peak_per_device": arg_bytes + rec.peak,
+        },
+        "cost": {"flops": rec.flops, "bytes_accessed": None,
+                 "transcendentals": None,
+                 "flops_note": "the kernels' plain versions' flops, as CPU "
+                               "shards run them"},
+        "looped": {"flops": rec.flops,
+                   "coll_operand_bytes": coll_bytes,
+                   "coll_count": len(rec.collectives)},
+        "collectives": by_kind,
+        "collective_operand_bytes": coll_bytes,
+        "hlo_bytes": None,
+        "unmeasured": UNMEASURED,
+        "counts_from": "fake process group on the CPU, not a device",
+    }
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, chunk: int = 1024):
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    if not shape_applicable(cfg, shape):
+        return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+                "status": "skipped",
+                "reason": "long_500k requires sub-quadratic attention "
+                          "(pure full-attention arch; DESIGN.md §4)"}
+    multi = mesh_kind == "multi"
+    with fake_group(512 if multi else 256):
+        mesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+        t0 = time.time()
+        step = build_sharded_step(cfg, mesh, shape, chunk=chunk)
+        t_build = time.time() - t0
+        # decode writes its token at the last slot of the shape's cache
+        res = measure(step, cur_index=decode_cache_len(cfg, shape)[0] - 1)
+    return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+            "status": "ok", "build_s": round(t_build, 2), **res}
+
+
+def _run_and_write(arch, shape, meshk, out_dir, chunk):
+    tag = f"{arch}__{shape}__{meshk}"
+    try:
+        res = run_cell(arch, shape, meshk, chunk=chunk)
+    except Exception as e:  # noqa: BLE001 - report, don't crash the sweep
+        res = {"arch": arch, "shape": shape, "mesh": meshk,
+               "status": "error", "error": f"{type(e).__name__}: {e}",
+               "traceback": traceback.format_exc()[-4000:]}
+    with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+        json.dump(res, f, indent=1)
+    extra = ""
+    if res["status"] == "ok":
+        extra = (f" peak/dev={res['memory']['peak_per_device']/2**30:.2f}GiB"
+                 f" flops={res['cost']['flops']:.3e}"
+                 f" coll={res['collective_operand_bytes']/2**20:.1f}MiB"
+                 f" run={res['run_s']}s")
+    print(f"[dryrun] {tag}: {res['status']}{extra}", flush=True)
+    return res["status"] != "error"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None, choices=list(ARCH_NAMES))
+    ap.add_argument("--shape", default=None, choices=list(SHAPES))
+    ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--chunk", type=int, default=1024)
+    args = ap.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+    if not args.all:
+        if not (args.arch and args.shape):
+            ap.error("--arch/--shape or --all")
+        ok = _run_and_write(args.arch, args.shape, args.mesh, args.out,
+                            args.chunk)
+        return 0 if ok else 1
+    ok = True
+    for a in ARCH_NAMES:        # one process per cell
+        for s in SHAPES:
+            for m in ("single", "multi"):
+                r = subprocess.run(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", a, "--shape", s, "--mesh", m, "--out",
+                     args.out, "--chunk", str(args.chunk)])
+                ok &= r.returncode == 0
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,15 +7,19 @@
 their plain PyTorch versions on the CPU. Cross-attention (encoder-decoder
 models) takes its keys and values from the encoder output, applies no RoPE
 and is never causal; its decode cache is the encoder's K/V, never written.
-The reference's mesh logic (``constrain``, ``_should_expand_kv``,
-``_context_segments``) reduces to the single-device case and is dropped.
+The reference's ``constrain`` calls sit at the same points (no-ops outside
+a mesh), and heads mode expands K/V to one head per query head where the
+KV heads do not shard (``_should_expand_kv``). Under a mesh the kernel
+wrappers gather context mode's sequence-sharded K/V (``kernels.ops``): the
+reference's segment-parallel combine (``_context_segments``) is not ported.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, current_mesh_rules
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
 from repro_torch.models.params import ParamSpec
@@ -49,7 +53,19 @@ def _project_qkv(p, x, x_kv=None, positions=None, kv_positions=None,
         q = rope(q, positions, theta)
         k = rope(k, kv_positions if kv_positions is not None else positions,
                  theta)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
+
+
+def _should_expand_kv(cfg: ModelConfig) -> bool:
+    """Expand KV to full heads when heads are mesh-sharded but KV heads are
+    not shardable (heads mode with kv_heads not divisible)."""
+    mesh, rules = current_mesh_rules()
+    if rules is None:
+        return False
+    return rules.get("_mode") == "heads" and not rules.get("kv_heads")
 
 
 def attend_full(p, cfg: ModelConfig, x, *, kind: str, positions,
@@ -62,11 +78,17 @@ def attend_full(p, cfg: ModelConfig, x, *, kind: str, positions,
     q, k, v = _project_qkv(p, x, x_kv=x_kv, positions=positions,
                            kv_positions=kv_positions, theta=cfg.rope_theta,
                            use_rope=not cross)
-    out = ops.flash_attention(q, k, v, causal=causal and not cross,
+    ke, ve = k, v
+    if _should_expand_kv(cfg):
+        G = q.shape[2] // k.shape[2]
+        ke = k.repeat_interleave(G, dim=2)
+        ve = v.repeat_interleave(G, dim=2)
+    out = ops.flash_attention(q, ke, ve, causal=causal and not cross,
                               window=cfg.window if kind == "local" else 0,
                               cap=cfg.attn_softcap)
+    out = constrain(out, "batch", "seq", "heads", "head_dim")
     y = torch.einsum("bshx,hxd->bsd", out, p["w_o"])
-    return y, (k, v)
+    return constrain(y, "batch", "seq", "d_model"), (k, v)
 
 
 def _ring_window(cfg: ModelConfig, kind: str) -> int:
@@ -91,16 +113,41 @@ def cache_axes():
 def prefill_into_cache(cfg: ModelConfig, kind: str, k, v, max_len: int):
     """Build a decode cache from prefill K/V (ring-packed for local layers).
     The tensors are owned and contiguous: decode writes into them in
-    place."""
+    place. Built by ``torch.cat`` alone, which DTensor lays out in every
+    torch this runs on (``torch.roll`` has no DTensor strategy in torch
+    2.11, and its ``F.pad`` returns placements for a one-dim mesh)."""
     B, S, K, D = k.shape
     W = _ring_window(cfg, kind)
     cap = min(max_len, W) if W else max_len
-    if S > cap:                       # keep last `cap`, ring-packed
-        shift = (S - cap) % cap
-        return {"k": torch.roll(k[:, S - cap:], shift, dims=1),
-                "v": torch.roll(v[:, S - cap:], shift, dims=1)}
-    pad = (0, 0, 0, 0, 0, cap - S)    # S == cap pads nothing, but copies
-    return {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+
+    def pack(t):
+        if S > cap:                   # keep last `cap`, rolled by `shift`
+            t, cut = t[:, S - cap:], cap - (S - cap) % cap
+            return torch.cat([t[:, cut:], t[:, :cut]], dim=1)
+        # zeros after the prefilled slots (none when S == cap: a copy)
+        return torch.cat([t, t.new_zeros((B, cap - S, K, D))], dim=1)
+
+    return {"k": pack(k), "v": pack(v)}
+
+
+def _write_slot(buf, slot: int, row):
+    """buf[:, slot:slot+1] = row, in place; buf (B,S,K,D), row (B,1,K,D).
+    A DTensor buffer is written through its local shard: the rank whose
+    shard holds the slot writes it (a cache sharded over its slots, context
+    mode's, has one such rank along those mesh dims)."""
+    if not isinstance(buf, DTensor):
+        buf[:, slot] = row[:, 0]
+        return
+    mesh, pl = buf.device_mesh, buf.placements
+    row = row.redistribute(mesh, [Replicate() if q.is_shard(1) else q
+                                  for q in pl]).to_local()
+    coord, n, idx = mesh.get_coordinate(), 1, 0
+    for i, q in enumerate(pl):
+        if q.is_shard(1):
+            idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
+    chunk = buf.shape[1] // n
+    if idx * chunk <= slot < (idx + 1) * chunk:
+        buf.to_local()[:, slot - idx * chunk] = row[:, 0]
 
 
 def attend_decode(p, cfg: ModelConfig, x, cache, cur_index: int, *,
@@ -119,7 +166,8 @@ def attend_decode(p, cfg: ModelConfig, x, cache, cur_index: int, *,
         kpos = torch.arange(S, dtype=torch.int32, device=x.device)
         out = ops.flash_decode(q, cache["k"], cache["v"], kpos, S - 1,
                                cap=cfg.attn_softcap)
-        return torch.einsum("bshx,hxd->bsd", out, p["w_o"]), cache
+        y = torch.einsum("bshx,hxd->bsd", out, p["w_o"])
+        return constrain(y, "batch", "seq", "d_model"), cache
     B = x.shape[0]
     cur = int(cur_index)
     pos = torch.full((B, 1), cur, dtype=torch.int32, device=x.device)
@@ -137,8 +185,10 @@ def attend_decode(p, cfg: ModelConfig, x, cache, cur_index: int, *,
     slot = cur % S if ring else cur
     # jax.lax.dynamic_update_slice clamps an out-of-range start to S-1
     slot = min(max(slot, 0), S - 1)
-    k_all[:, slot] = rope(k_new, pos, cfg.rope_theta)[:, 0].to(k_all.dtype)
-    v_all[:, slot] = v_new[:, 0].to(v_all.dtype)
+    _write_slot(k_all, slot, rope(k_new, pos, cfg.rope_theta).to(k_all.dtype))
+    _write_slot(v_all, slot, v_new.to(v_all.dtype))
+    k_all = constrain(k_all, *cache_axes())
+    v_all = constrain(v_all, *cache_axes())
     kpos = torch.arange(S, dtype=torch.int32, device=x.device)
     if ring:                          # ring buffer: absolute pos per slot
         kpos = cur - torch.remainder(cur - kpos, S)
@@ -146,4 +196,4 @@ def attend_decode(p, cfg: ModelConfig, x, cache, cur_index: int, *,
     out = ops.flash_decode(q, k_all, v_all, kpos, cur, window=W,
                            cap=cfg.attn_softcap)
     y = torch.einsum("bshx,hxd->bsd", out, p["w_o"])
-    return y, cache
+    return constrain(y, "batch", "seq", "d_model"), cache

@@ -1,13 +1,15 @@
 """Shared layers: norms, MLPs, rotary embeddings, token embedding (port of
 ``repro.models.layers``). Plain functions over tensors in the reference's
-parameter tree and einsum layouts; the reference's ``constrain`` calls are
-single-device no-ops and are dropped."""
+parameter tree and einsum layouts, with its ``constrain`` calls (no-ops
+outside a mesh)."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.params import ParamSpec
 
 
@@ -64,6 +66,7 @@ def mlp(p, cfg: ModelConfig, x):
     else:
         h = x @ p["w_in"] + p["b_in"]
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    h = constrain(h, "batch", "seq", "d_ff")
     y = h @ p["w_out"]
     if "b_out" in p:
         y = y + p["b_out"]
@@ -105,7 +108,7 @@ def embed(p, cfg: ModelConfig, tokens):
     if cfg.scale_embed:
         # the scale is rounded to x's dtype first, as jnp.asarray(.., dtype)
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
-    return x
+    return constrain(x, "batch", "seq", "d_model")
 
 
 def unembed(p, cfg: ModelConfig, x):
@@ -116,8 +119,14 @@ def unembed(p, cfg: ModelConfig, x):
         logits = c * torch.tanh(logits / c)
     # mask padded vocab entries
     if cfg.vocab_padded != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = torch.finfo(torch.float32).min
-    return logits
+        neg = torch.finfo(torch.float32).min
+        if isinstance(logits, DTensor):   # a DTensor has no in-place fill
+            keep = torch.arange(cfg.vocab_padded,
+                                device=logits.device) < cfg.vocab_size
+            logits = torch.where(keep, logits, neg)
+        else:
+            logits[..., cfg.vocab_size:] = neg
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 def softcap(x, cap: float):

@@ -26,17 +26,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import params as pspec
 from repro_torch.models.attention import (attend_decode, attend_full,
-                                          attn_spec, make_cache,
+                                          attn_spec, cache_axes, make_cache,
                                           prefill_into_cache)
 from repro_torch.models.layers import (embed, embed_spec, mlp, mlp_spec,
                                        rmsnorm, rmsnorm_spec, unembed)
 from repro_torch.models.moe import moe_apply, moe_spec
 from repro_torch.models.rglru import (rglru_decode, rglru_full, rglru_spec,
-                                      rglru_state)
+                                      rglru_state, rglru_state_axes)
 from repro_torch.models.ssm import (mamba_decode, mamba_full, mamba_spec,
-                                    mamba_state)
+                                    mamba_state, mamba_state_axes)
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 ATTN_KINDS = ("attn", "local")
@@ -120,6 +121,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return {"stack": stack, "leftover": left}
 
 
+def _block_cache_axes(cfg: ModelConfig, kind: str, cross_len: int = 0):
+    if kind in ATTN_KINDS:
+        c = {"kv": {"k": cache_axes(), "v": cache_axes()}}
+        if cross_len:
+            c["cross"] = {"k": cache_axes(), "v": cache_axes()}
+        return c
+    if kind == "ssm":
+        return {"state": mamba_state_axes()}
+    if kind == "rec":
+        return {"state": rglru_state_axes()}
+    raise ValueError(kind)
+
+
+def cache_abstract(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, cross_len: int = 0):
+    """``init_cache``'s tree as meta tensors: shapes and dtypes, no
+    storage."""
+    return init_cache(cfg, batch, max_len, dtype, "meta", cross_len)
+
+
+def cache_logical_axes(cfg: ModelConfig, cross_len: int = 0):
+    """Tree of logical-axis tuples matching the init_cache structure."""
+    pattern, n_groups, leftover = cfg.pattern_split()
+
+    def stacked(tree):
+        if isinstance(tree, dict):
+            return {k: stacked(v) for k, v in tree.items()}
+        return ("layers",) + tuple(tree)
+
+    stack = tuple(stacked(_block_cache_axes(cfg, kind, cross_len))
+                  for kind in pattern)
+    left = tuple(_block_cache_axes(cfg, kind, cross_len)
+                 for kind in leftover)
+    return {"stack": stack, "leftover": left}
+
+
 # ------------------------------------------------------------------ blocks
 
 def block_apply(p, cfg: ModelConfig, kind: str, x, *, mode: str,
@@ -184,6 +221,9 @@ def block_apply(p, cfg: ModelConfig, kind: str, x, *, mode: str,
         if cfg.post_norms:
             y = rmsnorm(p["ln2_post"], y, eps)
         x = x + y
+    # residual stream between blocks: optionally sequence-sharded over the
+    # model axis (Megatron-SP)
+    x = constrain(x, "batch", "seq_act", "d_model")
     return x, (new_cache if mode != "train" else None)
 
 
@@ -274,6 +314,7 @@ def forward(params, cfg: ModelConfig, *, mode: str, tokens,
             img = img * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                                      device=x.device)
         x = torch.cat([img, x], dim=1)
+        x = constrain(x, "batch", "seq", "d_model")
     B, S = x.shape[:2]
     positions = None
     if mode != "decode":
@@ -297,6 +338,7 @@ def encode(params, cfg: ModelConfig, embeds):
     """Bidirectional encoder pass (encoder-decoder models): embeds (B,S,d)
     -> (B,S,d), final norm applied."""
     B, S = embeds.shape[:2]
+    embeds = constrain(embeds, "batch", "seq", "d_model")
     x, _ = _run_stack(params, cfg, embeds, mode="train",
                       positions=seq_positions(B, S, embeds.device),
                       causal=False)
@@ -304,5 +346,7 @@ def encode(params, cfg: ModelConfig, embeds):
 
 
 def greedy_sample(logits):
-    """(B, 1, V) -> (B, 1) int32 next tokens."""
+    """(B, 1, V) -> (B, 1) int32 next tokens. Under a mesh the vocab dim
+    is gathered first: DTensor's argmax over a sharded dim fails."""
+    logits = constrain(logits, "batch", "seq", None)
     return logits[:, -1, :].argmax(dim=-1).to(torch.int32)[:, None]

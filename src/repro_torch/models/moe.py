@@ -2,9 +2,9 @@
 
 The reference's path for one device (no mesh): a dense compute of every
 expert on every token, masked by the normalised top-k router weights, so no
-token is dropped. Its expert-parallel ``shard_map`` path (sort-based
-capacity dispatch, all_to_all over the data axis) comes with the
-multi-device port.
+token is dropped. Under a mesh the same dense path runs on DTensors; the
+reference's expert-parallel ``shard_map`` path (sort-based capacity
+dispatch, all_to_all over the data axis) is not ported yet.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.params import ParamSpec
 
 
@@ -41,7 +42,8 @@ def _router_logits(x, router):
     identity."""
     xf = x.reshape(-1, x.shape[-1]).float()
     n = xf.shape[0]
-    xf = F.pad(xf, (0, 0, 0, (-n) % ROUTER_ROWS))
+    # zero rows to a whole block (by torch.cat, as for DTensors)
+    xf = torch.cat([xf, xf.new_zeros(((-n) % ROUTER_ROWS, xf.shape[1]))])
     logits = torch.cat([blk @ router for blk in xf.split(ROUTER_ROWS)])
     return logits[:n].reshape(x.shape[:-1] + (router.shape[1],))
 
@@ -81,8 +83,12 @@ def moe_apply(p, cfg: ModelConfig, x):
     h = torch.einsum("bsd,edf->bsef", x, p["w_in"])
     h = F.silu(g.float()).to(x.dtype) * h
     y = torch.einsum("bsef,efd->bsed", h, p["w_out"])
+    # under a mesh, every expert's output on each rank before the pick:
+    # DTensor's gather over a sharded dim leaves a masked partial that its
+    # next reduction cannot take
+    y = constrain(y, "batch", "seq", None, "d_model")
     chosen = y.gather(2, top_i[..., None].expand(-1, -1, -1, y.shape[-1]))
     out = chosen[:, :, 0].float() * top_p[..., 0:1]
     for j in range(1, cfg.moe.top_k):
         out = out + chosen[:, :, j].float() * top_p[..., j:j + 1]
-    return out.to(x.dtype)
+    return constrain(out.to(x.dtype), "batch", "seq", "d_model")

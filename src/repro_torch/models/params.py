@@ -5,6 +5,8 @@ the reference's keys and einsum layouts, so a tree of tensors made here and a
 JAX tree made by ``repro`` line up leaf for leaf:
 
 * ``materialize(spec, gen)``     -> real tensors, drawn from a torch.Generator
+* ``abstract(spec)``             -> meta tensors (dry run, sharded steps)
+* ``logical_axes(spec)``         -> each leaf's logical sharding axes
 * ``from_numpy_tree(tree, dev)`` -> the JAX package's weights as tensors,
   bit-exact (the weight bridge the parity tests use)
 """
@@ -32,9 +34,13 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
 def tree_map_specs(fn, tree):
     """Apply ``fn`` to every ParamSpec of a dict/tuple spec tree."""
-    if isinstance(tree, ParamSpec):
+    if is_spec(tree):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: tree_map_specs(fn, v) for k, v in tree.items()}
@@ -46,6 +52,18 @@ def stack_specs(tree, n: int, axis_name=None):
     return tree_map_specs(
         lambda s: ParamSpec((n,) + tuple(s.shape), (axis_name,) + tuple(s.axes),
                             s.dtype, s.init, s.scale), tree)
+
+
+def abstract(tree):
+    """A tensor on the meta device per spec: its shape and dtype, no
+    storage."""
+    return tree_map_specs(
+        lambda s: torch.empty(tuple(s.shape), dtype=s.dtype, device="meta"),
+        tree)
+
+
+def logical_axes(tree):
+    return tree_map_specs(lambda s: tuple(s.axes), tree)
 
 
 def materialize(tree, gen: torch.Generator):
@@ -76,7 +94,7 @@ def materialize(tree, gen: torch.Generator):
 
 
 def _leaf_specs(tree):
-    if isinstance(tree, ParamSpec):
+    if is_spec(tree):
         return [tree]
     vals = tree.values() if isinstance(tree, dict) else tree
     return [s for v in vals for s in _leaf_specs(v)]

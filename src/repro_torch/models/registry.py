@@ -27,6 +27,9 @@ class Bundle:
     def init(self, gen: torch.Generator):
         return pspec.materialize(self.spec(), gen)
 
+    def abstract_params(self):
+        return pspec.abstract(self.spec())
+
     def _image(self):
         return self.cfg.modality == "image_patches"
 
@@ -62,6 +65,13 @@ class Bundle:
                    dtype=torch.bfloat16, device="cuda"):
         return lm.init_cache(self.cfg, batch, max_len, dtype,
                              resolve_device(device), cross_len)
+
+    def cache_abstract(self, batch: int, max_len: int, cross_len: int = 0,
+                       dtype=torch.bfloat16):
+        return lm.cache_abstract(self.cfg, batch, max_len, dtype, cross_len)
+
+    def cache_axes(self, cross_len: int = 0):
+        return lm.cache_logical_axes(self.cfg, cross_len)
 
 
 def get_bundle(cfg: ModelConfig) -> Bundle:

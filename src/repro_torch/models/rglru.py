@@ -5,7 +5,8 @@ Linear recurrence h_t = a_t * h_{t-1} + sqrt(1-a_t^2) * (i_t * x_t) with
 input-dependent gates. Train/prefill runs a log-depth parallel scan over the
 sequence (the reference's ``lax.associative_scan``); decode is an O(1) state
 update. The recurrence/input gates are per-channel (diagonal), as in the
-reference. Its ``constrain`` calls are single-device no-ops and are dropped.
+reference. Its ``constrain`` calls sit at the same points (no-ops outside a
+mesh).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.ssm import causal_conv, conv_step
 
@@ -75,12 +77,14 @@ def rglru_full(p, cfg: ModelConfig, x):
     xb = torch.einsum("bld,dr->blr", x, p["w_x"])
     conv_state = xb[:, -(w - 1):]            # the pre-conv input's tail
     xb = causal_conv(xb, p["conv_k"]) + p["conv_b"]
+    xb = constrain(xb, "batch", "seq", "d_rnn")
     a, b = _gates(p, cfg, xb.float())
-    h = linear_scan(a, b)
+    h = constrain(linear_scan(a, b), "batch", "seq", "d_rnn")
     gate = F.gelu(torch.einsum("bld,dr->blr", x, p["w_gate"]).float(),
                   approximate="tanh")
     y = torch.einsum("blr,rd->bld", (h * gate).to(x.dtype), p["w_out"])
-    return y, {"h": h[:, -1], "conv": conv_state}
+    return (constrain(y, "batch", "seq", "d_model"),
+            {"h": h[:, -1], "conv": conv_state})
 
 
 def rglru_decode(p, cfg: ModelConfig, x, state):
@@ -90,11 +94,12 @@ def rglru_decode(p, cfg: ModelConfig, x, state):
     xb, conv_state = conv_step(xb, state["conv"], p["conv_k"])
     xb = xb + p["conv_b"]
     a, b = _gates(p, cfg, xb[:, 0].float())
-    h = a * state["h"] + b
+    h = constrain(a * state["h"] + b, "batch", "d_rnn")
     gate = F.gelu(torch.einsum("bld,dr->blr", x, p["w_gate"]).float(),
                   approximate="tanh")[:, 0]
     y = torch.einsum("br,rd->bd", (h * gate).to(x.dtype), p["w_out"])
-    return y[:, None], {"h": h, "conv": conv_state}
+    return (constrain(y[:, None], "batch", "seq", "d_model"),
+            {"h": h, "conv": conv_state})
 
 
 def rglru_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
@@ -104,3 +109,7 @@ def rglru_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
     return {"h": torch.zeros((batch, r), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, w - 1, r), dtype=dtype,
                                 device=device)}
+
+
+def rglru_state_axes():
+    return {"h": ("batch", "d_rnn"), "conv": ("batch", "conv_w", "d_rnn")}

@@ -4,8 +4,8 @@ Prefill runs the chunked SSD scan through ``kernels.ops.ssd``: the
 hand-written CUDA kernel on the card, its plain PyTorch version
 (``kernels.ssd_scan.ssd_scan_plain``, the port of the reference's
 ``ssd_reference``) on the CPU. Decode is an O(1) state
-update. The reference's ``constrain`` calls are single-device no-ops and are
-dropped.
+update. The reference's ``constrain`` calls sit at the same points (no-ops
+outside a mesh).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamSpec
 
@@ -50,8 +51,10 @@ def causal_conv(x, kern):
     """Depthwise causal conv along dim 1. x (B,L,*C); kern (w,*C)."""
     w = kern.shape[0]
     L = x.shape[1]
-    pad = [0, 0] * (x.dim() - 2) + [w - 1, 0]
-    xp = F.pad(x, pad)
+    # w-1 zeros before the sequence (by torch.cat: DTensor's F.pad returns
+    # placements for a one-dim mesh in torch 2.11)
+    xp = torch.cat([x.new_zeros((x.shape[0], w - 1) + tuple(x.shape[2:])),
+                    x], dim=1)
     y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(w):
         y = y + kern[i].float() * xp[:, i:i + L].float()
@@ -82,7 +85,8 @@ def _finish(p, cfg: ModelConfig, y, z, xh):
     g = y * F.silu(z.float())
     var = g.square().mean(dim=(-2, -1), keepdim=True)
     g = g * torch.rsqrt(var + 1e-6) * (1.0 + p["norm"])
-    return torch.einsum("blhp,hpd->bld", g.to(xh.dtype), p["w_out"])
+    g = constrain(g.to(xh.dtype), "batch", "seq", "ssm_heads", "ssm_hd")
+    return torch.einsum("blhp,hpd->bld", g, p["w_out"])
 
 
 def _silu(t, dtype):
@@ -99,9 +103,11 @@ def mamba_full(p, cfg: ModelConfig, x):
     xh = _silu(causal_conv(xh, p["conv_x"]), x.dtype)
     b = _silu(causal_conv(b, p["conv_b"]), x.dtype)
     c = _silu(causal_conv(c, p["conv_c"]), x.dtype)
+    xh = constrain(xh, "batch", "seq", "ssm_heads", "ssm_hd")
     a = -torch.exp(p["a_log"])
     y, state["ssm"] = ops.ssd(xh, dt, a, b, c, chunk=s.chunk)
-    return _finish(p, cfg, y.float(), z, xh), state
+    out = _finish(p, cfg, y.float(), z, xh)
+    return constrain(out, "batch", "seq", "d_model"), state
 
 
 def mamba_decode(p, cfg: ModelConfig, x, state):
@@ -117,9 +123,10 @@ def mamba_decode(p, cfg: ModelConfig, x, state):
     xdt = xh[:, 0].float() * dt[:, 0, :, None]
     s_new = (state["ssm"] * dA[:, :, None, None]
              + torch.einsum("bhp,bn->bhpn", xdt, b[:, 0].float()))
+    s_new = constrain(s_new, "batch", "ssm_heads", "ssm_hd", "ssm_state")
     y = torch.einsum("bhpn,bn->bhp", s_new, c[:, 0].float())
     out = _finish(p, cfg, y[:, None], z, xh)
-    return out, {"ssm": s_new, "conv_x": cx, "conv_b": cb, "conv_c": cc}
+    return constrain(out, "batch", "seq", "d_model"), {"ssm": s_new, "conv_x": cx, "conv_b": cb, "conv_c": cc}
 
 
 def mamba_state(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,

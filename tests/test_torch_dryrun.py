@@ -1,0 +1,90 @@
+"""The port's dry run (``launch/dryrun.py``) on ``fake`` process groups: no
+device, no allocation (DTensors whose local shards are fake tensors).
+
+* The counterpart of test_system.py::test_dryrun_cell_machinery_small_mesh:
+  smoke gemma2 on a fake 8-rank (2, 4) mesh, train shape (64, 8), chunk
+  32: per-rank flops > 0 and collectives > 0, an all_reduce among them.
+* ``python -m repro_torch.launch.dryrun`` on a production cell (qwen2-0.5b
+  decode_32k on the 256-rank single mesh) writes an ``ok`` record under the
+  reference's file name with every key the port measures, and ``null``
+  for the ones it cannot.
+* The reference's skip record for a cell ``shape_applicable`` rules out.
+
+Each process group lives in a subprocess with a 240 s timeout.
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _python(args, timeout=240):
+    out = subprocess.run([sys.executable, *args], capture_output=True,
+                         text=True, timeout=timeout, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out.stdout
+
+
+def test_dryrun_cell_machinery_small_mesh():
+    code = textwrap.dedent("""
+        import json
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.distributed.steps import build_sharded_step
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import make_mesh
+        with dryrun.fake_group(8):
+            mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
+            cfg = get_smoke_config("gemma2-27b")
+            step = build_sharded_step(cfg, mesh, ShapeSpec("t", "train", 64, 8),
+                                      chunk=32)
+            res = dryrun.measure(step)
+        print(json.dumps(res))
+    """)
+    res = json.loads(_python(["-c", code]).strip().splitlines()[-1])
+    assert res["mode"] == "heads" and res["devices"] == 8
+    assert res["cost"]["flops"] > 0
+    n = sum(c["count"] for c in res["collectives"].values())
+    assert n > 0 and res["collective_operand_bytes"] > 0
+    assert "all_reduce" in res["collectives"]
+    mem = res["memory"]
+    assert 0 < mem["argument_bytes"] < mem["peak_per_device"]
+
+
+def test_dryrun_main_writes_production_cell(tmp_path):
+    _python(["-m", "repro_torch.launch.dryrun", "--arch", "qwen2-0.5b",
+             "--shape", "decode_32k", "--mesh", "single", "--out",
+             str(tmp_path)])
+    rec = json.loads((tmp_path / "qwen2-0.5b__decode_32k__single.json")
+                     .read_text())
+    assert rec["status"] == "ok", rec.get("error")
+    assert (rec["arch"], rec["shape"], rec["mesh"]) == (
+        "qwen2-0.5b", "decode_32k", "single")
+    assert rec["mode"] == "context" and rec["devices"] == 256
+    for k in ("argument_bytes", "output_bytes", "peak_per_device"):
+        assert rec["memory"][k] > 0, k
+    assert rec["memory"]["temp_bytes"] is None
+    assert rec["cost"]["flops"] > 0
+    assert rec["cost"]["bytes_accessed"] is None
+    assert rec["cost"]["transcendentals"] is None
+    assert rec["hlo_bytes"] is None and rec["unmeasured"]
+    assert rec["looped"]["flops"] == rec["cost"]["flops"]
+    assert rec["looped"]["coll_operand_bytes"] == rec[
+        "collective_operand_bytes"] > 0
+    assert rec["looped"]["coll_count"] == sum(
+        c["count"] for c in rec["collectives"].values())
+    # context mode decode at batch 128: the cache is gathered over the
+    # sequence before the local kernel call
+    assert rec["context_attention"] == "gathered"
+    assert "all_gather_into_tensor" in rec["collectives"]
+
+
+def test_dryrun_skip_record():
+    from repro_torch.launch.dryrun import run_cell
+    rec = run_cell("qwen2-0.5b", "long_500k", "single")
+    assert rec["status"] == "skipped" and rec["reason"]

@@ -77,7 +77,9 @@ SLICE_MODULES = [
     "repro_torch.models.moe", "repro_torch.models.encdec",
     "repro_torch.data.pipeline", "repro_torch.training.compression",
     "repro_torch.training.optimizer", "repro_torch.checkpoint.checkpoint",
-    "repro_torch.launch.train",
+    "repro_torch.launch.train", "repro_torch.configs.shapes",
+    "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+    "repro_torch.launch.dryrun",
 ]
 
 
