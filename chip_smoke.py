@@ -44,7 +44,22 @@ prefill phase one per model):
              ssd_scan and ssd_scan_bwd also, from profiled calls, the
              device kernels per call and each pass's device time, and the
              forward's head group in use. No PyTorch call computes the SSD
-             scan or its backward: no library time.
+             scan or its backward: no library time. Then the
+             segment-parallel context attention's kernel changes
+             (SEG_SPLITS): flash_attention with a key offset k0 per
+             segment against its plain version on the rows that see a key
+             (ATTN_CASES in f32 and bf16, qwen2-0.5b at (1, 2048) and
+             recurrentgemma's windowed (1, 3072), in 2 and 16 segments), the
+             segments merged by lse against the unsegmented kernel and the
+             plain version, each segment's backward (from the merged out
+             and lse) against the unsegmented backward's slices and the sum
+             of the segments' dq against its dq at (4, 256) and (1, 2048),
+             and flash_decode's rows' lse with the cache cut into 2 and 16
+             shards, merged, against the unsplit kernel; times of the 16
+             segment calls beside the whole call, forward and backward, of
+             the last segment alone (plain version, SDPA with its mask,
+             bound) and of one decode shard with and without lse; ssd_scan
+             also at the train step's (4, 1024).
 4. prefill — the prefill -> decode path of every family at full width
              (random weights from a seed): qwen2-0.5b and mamba2-130m at
              (B, S) = (1, 2048) and (4, 512); recurrentgemma-2b also at
@@ -100,8 +115,18 @@ prefill phase one per model):
              for 4 steps with a checkpoint at 2, its losses against the
              train phase's plain launcher's and its resume from step 2, bit
              for bit. Each with the sharded and the plain steps' times,
-             alternating (DTensor's host cost). The group is destroyed
-             however the phase ends.
+             alternating (DTensor's host cost). Then full-width qwen3-moe
+             cut to 4 layers through the mesh, where MoE takes the
+             expert-parallel path (capacity dispatch, drops): a prefill at
+             (1, 2048) and (4, 512) and 16 greedy decode steps (launches,
+             the dropped pairs of each call), one MoE block against a
+             masked-dense version with the same drop table (bf16 2e-2),
+             two calls bit for bit, a token with no dropped pair bit for
+             bit at 2048, 2049 and 1 tokens, each 64-row block of one
+             batched expert product bit for bit against a product of that
+             block alone at 1 to 80 blocks, and the device time of the 4
+             blocks' expert GEMMs, expert-parallel beside dense, in turns.
+             The group is destroyed however the phase ends.
 7. serve   — full-width qwen2-0.5b (24 layers, d_model 896, vocab 151936,
              random weights from a seed) served by a Clockwork Controller and
              one Worker over TorchBackend on a RealClock; checks answers and
@@ -145,6 +170,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -336,6 +362,41 @@ TRAIN_SMOKE = {"qwen2-0.5b": "gemma2-27b", "mamba2-130m": "mamba2-130m"}
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 4
 TRAIN_TIMED = 5
 TRAIN_LONG, TRAIN_LONG_STEPS = (2, 2048), 2
+# the segment-parallel context attention's kernel changes (models/flash_xla.py,
+# the reference's flash_xla._make_seg_flash): flash_attention with a key
+# offset k0 per segment, against its plain version on the rows that see a
+# key of the segment, in f32 and bf16, over ATTN_CASES and SEG_PATH
+# (B, S, H, K, D, window, all causal: qwen2-0.5b at (1, 2048),
+# recurrentgemma's windowed layer at (1, 3072)), each cut into SEG_SPLITS
+# segments (16 is the production model axis) where they divide S; the
+# segments merged by lse against the unsegmented kernel and the plain
+# version; the backward per segment from the merged out and lse (each
+# segment's dk, dv against the slice of the unsegmented backward's, the sum
+# of the segments' dq against its dq) at SEG_BWD (qwen2-0.5b's heads, the
+# train call (4, 256) and (1, 2048)); flash_decode with the rows' lse, the
+# cache cut into SEG_SPLITS shards and merged against the unsplit kernel,
+# at SEG_DECODE (B, S, cur: the qwen2 served cache at buckets 1 and 8,
+# S = 4096). Timed: the SEG_TIMED_SPLIT segment calls beside the whole
+# call at (1, 2048), forward and backward, the last segment (the most live
+# pairs) alone beside its plain version and SDPA with its mask, and one
+# decode shard with and without lse
+SEG_SPLITS = (2, 16)
+SEG_PATH = [(1, 2048, 14, 2, 64, 0), (1, 3072, 10, 1, 256, 2048)]
+SEG_BWD = [(4, 256), (1, 2048)]
+SEG_DECODE = [(1, 128, 64), (8, 128, 64), (1, 4096, 4095)]
+SEG_TIMED_SPLIT = 16
+# the sharded phase's expert-parallel MoE: full-width qwen3-moe-235b-a22b cut
+# to MOE_LAYERS through the (1, 1) mesh (the reference's use_ep condition
+# holds on it), a prefill at each PREFILL_SHAPES and N_DECODE greedy decode
+# steps; one MoE block against a masked-dense version with the same drop
+# table; repeats bit for bit; a kept token's bits at MOE_ROWS tokens; the
+# expert GEMMs' device time, the expert-parallel path beside the dense one
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_ROWS = (2048, 2049, 1)
+# counts of 64-row blocks in one batched expert product (the production
+# mesh's capacity dim holds ~80 of a 4096-token chunk), each block held bit
+# for bit to a product of that block alone
+MOE_BLOCKS = (1, 2, 3, 5, 8, 16, 33, 80)
 # the sharded phase: the train and serve paths through build_sharded_step on
 # a one-rank ("data", "model") mesh over NCCL, held to the plain steps from
 # the same (conditioned) weights: SHARDED_TRAIN[arch] = ((B, S), steps
@@ -952,6 +1013,277 @@ def _check_bwd_repeat(case):
     return list(case)
 
 
+def _live_rows(Sq, Skv, causal, window, k0):
+    """(Sq,) bool: the query rows that see a key of a segment from k0."""
+    from repro_torch.kernels import flash_attention as fa
+    return fa._mask(Sq, Skv, causal, window, "cuda", k0).any(dim=1)
+
+
+def _check_segments(case, dtype):
+    """flash_attention cut into SEG_SPLITS segments along the keys (those
+    that divide Skv): each segment's kernel call with its k0 against the
+    plain version on its live rows (out within TOL, lse within the f32
+    tolerance), then the segments merged by lse against the unsegmented
+    kernel and the plain version. Returns (largest segment error, largest
+    merge error)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    B, Sq, Skv, H, K, D, causal, window, cap = case
+    kw = dict(causal=causal, window=window, cap=cap)
+    q, k, v = _attn_tensors(case, getattr(torch, dtype), seed=3)
+    whole, _ = fa._forward(q, k, v, causal, window, cap, True)
+    plain = fa.flash_attention_plain(q, k, v, **kw)
+    seg_err, merge_err = 0.0, 0.0
+    for n in SEG_SPLITS:
+        if Skv % n:
+            continue
+        c = Skv // n
+        outs, lses = [], []
+        for a in range(0, Skv, c):
+            ks, vs = k[:, a:a + c], v[:, a:a + c]
+            out, lse = fa._forward(q, ks, vs, causal, window, cap, True, k0=a)
+            want, want_lse = fa.flash_attention_plain(
+                q, ks, vs, return_lse=True, k0=a, **kw)
+            live = _live_rows(Sq, c, causal, window, a)
+            err, ok = _allclose_err(out[:, live], want[:, live], TOL[dtype])
+            lerr, lok = _allclose_err(lse[..., live], want_lse[..., live],
+                                      TOL["float32"])
+            if not (ok and lok and torch.isfinite(out).all().item()):
+                die("kernels", f"flash_attention k0={a} of {case} {dtype}: "
+                               f"out err {err}, lse err {lerr}")
+            seg_err = max(seg_err, err)
+            outs.append(out)
+            lses.append(lse)
+        merged, _ = ops.merge(outs, lses)
+        for name, ref in (("unsegmented kernel", whole), ("plain", plain)):
+            err, ok = _allclose_err(merged.to(q.dtype), ref, TOL[dtype])
+            if not ok:
+                die("kernels", f"flash_attention {case} {dtype}: {n} "
+                               f"segments merged against the {name}: max "
+                               f"abs err {err}")
+            merge_err = max(merge_err, err)
+    return seg_err, merge_err
+
+
+def _rel(a, b):
+    """max |a - b| over max |b|, f32."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp(min=1e-30)).item()
+
+
+def _check_segment_bwd(B, S, n):
+    """bf16, qwen2-0.5b's heads, causal: each segment's backward kernel
+    (k0, from the merged out and lse of the n segments) against the
+    unsegmented backward: dk and dv against its slices, the f32 sum of the
+    segments' dq against its dq, each within BWD_TOL of the largest
+    element; each segment also against the plain backward. Returns the
+    largest of those relative errors."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import flash_xla
+    q, k, v, dout = _bwd_tensors((B, S, S, 14, 2, 64), torch.bfloat16, seed=4)
+    out, lse = fa._forward(q, k, v, True, 0, 0.0, want_lse=True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+    merged, lse_tot = flash_xla._forward(q, k, v, True, 0, 0.0, n, None)
+    c, dq_sum, worst = S // n, None, 0.0
+    for a in range(0, S, c):
+        args = (q, k[:, a:a + c], v[:, a:a + c], merged, lse_tot, dout)
+        got = fa.flash_attention_bwd(*args, k0=a)
+        want = fa.flash_attention_bwd_plain(*args, k0=a)
+        errs = [_rel(got[1], dk[:, a:a + c]), _rel(got[2], dv[:, a:a + c])]
+        errs += [_rel(x, y) for x, y in zip(got, want)]
+        if not all(torch.isfinite(x).all().item() for x in got) or max(
+                errs) > BWD_TOL["bfloat16"]:
+            die("kernels", f"flash_attention_bwd k0={a} of (B, S)=({B}, "
+                           f"{S}) in {n} segments: rel errs {errs}")
+        worst = max(worst, *errs)
+        dq_sum = got[0].float() if dq_sum is None else dq_sum + got[0].float()
+    err = _rel(dq_sum, dq)
+    if err > BWD_TOL["bfloat16"]:
+        die("kernels", f"flash_attention_bwd (B, S)=({B}, {S}): the sum of "
+                       f"{n} segments' dq, rel err {err}")
+    return max(worst, err)
+
+
+def _check_decode_split(B, S, cur, n):
+    """flash_decode with the rows' lse (bf16, qwen2-0.5b's heads): the
+    output equal to the call without lse, the lse against the plain
+    version's, and the cache cut into n shards, merged, against the unsplit
+    kernel. Returns (lse error, merge error)."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+    q, k, v, kpos = _case_tensors((B, S, 14, 2, 64, 0, False, 0.0, cur),
+                                  torch.bfloat16, seed=5)
+    whole = fd.flash_decode(q, k, v, kpos, cur)
+    out, lse = fd.flash_decode(q, k, v, kpos, cur, return_lse=True)
+    _, want_lse = fd.flash_decode_plain(q, k, v, kpos, cur, return_lse=True)
+    lerr, lok = _allclose_err(lse, want_lse, TOL["float32"])
+    c = S // n
+    parts = [fd.flash_decode(q, k[:, a:a + c], v[:, a:a + c], kpos[a:a + c],
+                             cur, return_lse=True) for a in range(0, S, c)]
+    merged, _ = ops.merge([o for o, _ in parts], [l for _, l in parts])
+    err, ok = _allclose_err(merged.to(q.dtype), whole, TOL["bfloat16"])
+    if not (torch.equal(out, whole) and lok and ok):
+        die("kernels", f"flash_decode lse (B, S, cur)=({B}, {S}, {cur}) in "
+                       f"{n} shards: out with lse equal "
+                       f"{torch.equal(out, whole)}, lse err {lerr}, merged "
+                       f"err {err}")
+    return lerr, err
+
+
+def _segment_mask_sdpa(q, k, v, k0, causal, window):
+    """SDPA over one key segment, its mask given (yardstick only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    mask = fa._mask(q.shape[1], k.shape[1], causal, window, "cuda", k0)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(           # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def _time_segments(B, S, H, K, D, window, n):
+    """bf16, causal: the n segment calls (k0 = 0, S/n, ...; lse written, as
+    the segment path runs them) beside the whole call with lse, then the
+    last segment alone (the most live pairs): kernel, plain version and
+    SDPA with its mask, and its bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_tensors((B, S, S, H, K, D), torch.bfloat16, seed=1)
+    c = S // n
+
+    def segments():
+        for a in range(0, S, c):
+            fa._forward(q, k[:, a:a + c], v[:, a:a + c], True, window, 0.0,
+                        True, k0=a)
+    a = S - c
+    ks, vs = k[:, a:a + c], v[:, a:a + c]
+    times = _timed(
+        lambda: fa._forward(q, ks, vs, True, window, 0.0, True, k0=a),
+        lambda: fa.flash_attention_plain(q, ks, vs, causal=True,
+                                         window=window, return_lse=True, k0=a),
+        _segment_mask_sdpa(q, ks, vs, a, True, window))
+    pairs = int(fa._mask(S, c, True, window, "cuda", a).sum().item())
+    # q read on the live rows only; out and lse written on every row (0
+    # and the sentinel on the dead ones); the segment's K and V read
+    live = int(_live_rows(S, c, True, window, a).sum().item())
+    bytes_moved = (B * live * H * D * 2 + B * S * H * D * 2 + B * H * S * 4
+                   + 2 * B * c * K * D * 2)
+    return _rated({
+        "B": B, "S": S, "H": H, "K": K, "D": D, "window": window,
+        "segments": n, "k0": a, "live_rows": live, "dtype": "bfloat16",
+        **times,
+        "library_note": "F.scaled_dot_product_attention(enable_gqa=True) "
+                        "with the segment's mask, no lse",
+        "all_segments_ms": graph_ms(segments, per_graph=4),
+        "whole_call_ms": graph_ms(lambda: fa._forward(
+            q, k, v, True, window, 0.0, True)),
+        **_bound(bytes_moved, 4 * B * H * D * pairs)})
+
+
+def _time_segment_bwd(B, S, n):
+    """bf16, qwen2-0.5b's heads, causal: the n segments' backward calls
+    beside the whole backward, then the last segment's alone: kernel,
+    plain version, SDPA's backward with its mask (autograd, eager) and its
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import flash_xla
+    H, K, D = 14, 2, 64
+    q, k, v, dout = _bwd_tensors((B, S, S, H, K, D), torch.bfloat16, seed=1)
+    out, lse = fa._forward(q, k, v, True, 0, 0.0, want_lse=True)
+    merged, lse_tot = flash_xla._forward(q, k, v, True, 0, 0.0, n, None)
+    c = S // n
+
+    def segments():
+        for a in range(0, S, c):
+            fa.flash_attention_bwd(q, k[:, a:a + c], v[:, a:a + c], merged,
+                                   lse_tot, dout, k0=a)
+    a = S - c
+    args = (q, k[:, a:a + c], v[:, a:a + c], merged, lse_tot, dout)
+    mask = fa._mask(S, c, True, 0, "cuda", a)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, args[1], args[2]))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                             enable_gqa=True)
+    dt = dout.transpose(1, 2)
+    library = lambda: torch.autograd.grad(                    # noqa: E731
+        lib_out, (qt, kt, vt), dt, retain_graph=True)
+    times = _timed(lambda: fa.flash_attention_bwd(*args, k0=a),
+                   lambda: fa.flash_attention_bwd_plain(*args, k0=a), None)
+    times["library_ms"] = times["library_eager_ms"] = cuda_ms(library, 50)
+    pairs = int(mask.sum().item())
+    # q, out, dout and lse read on the live rows only; dq written on every
+    # row (0 on the dead ones); the segment's K, V read and dK, dV written
+    live = int(mask.any(dim=1).sum().item())
+    bytes_moved = (3 * B * live * H * D * 2 + B * live * H * 4
+                   + B * S * H * D * 2 + 4 * B * c * K * D * 2)
+    return _rated({
+        "B": B, "S": S, "H": H, "K": K, "D": D, "segments": n, "k0": a,
+        "live_rows": live, "dtype": "bfloat16", **times,
+        "library_note": "backward of F.scaled_dot_product_attention"
+                        "(enable_gqa=True) with the segment's mask, under "
+                        "autograd; CUDA events around eager calls",
+        "all_segments_ms": graph_ms(segments, per_graph=4),
+        "whole_call_ms": graph_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, dout)),
+        **_bound(bytes_moved, 10 * D * B * H * pairs)})
+
+
+def _time_decode_lse(S, n):
+    """bf16, qwen2-0.5b's heads, B=1, cur at the end: one of n shards of an
+    S-slot cache (the last, every slot live) with lse and without, its
+    plain version with lse and SDPA over the shard; the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    cur = S - 1
+    q, k, v, kpos = _case_tensors((1, S, 14, 2, 64, 0, False, 0.0, cur),
+                                  torch.bfloat16, seed=6)
+    c = S // n
+    ks, vs, kp = k[:, S - c:], v[:, S - c:], kpos[S - c:]
+    qt = q.reshape(1, 14, 1, 64)
+    kt, vt = ks.transpose(1, 2), vs.transpose(1, 2)
+    times = _timed(
+        lambda: fd.flash_decode(q, ks, vs, kp, cur, return_lse=True),
+        lambda: fd.flash_decode_plain(q, ks, vs, kp, cur, return_lse=True),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True))
+    bytes_moved = 2 * c * 2 * 64 * 2 + 2 * 14 * 64 * 2 + 14 * 4
+    return _rated({"B": 1, "S": S, "shards": n, "shard_slots": c, "cur": cur,
+                   "H": 14, "K": 2, "D": 64, "dtype": "bfloat16", **times,
+                   "without_lse_ms": graph_ms(
+                       lambda: fd.flash_decode(q, ks, vs, kp, cur)),
+                   "library_note": "F.scaled_dot_product_attention over the "
+                                   "shard, no lse",
+                   **_bound(bytes_moved, 4 * 14 * 64 * c)})
+
+
+def _segment_checks():
+    """The context attention's kernel checks and times (see SEG_SPLITS)."""
+    cases = [c for c in ATTN_CASES] + [
+        (B, S, S, H, K, D, True, w, 0.0) for B, S, H, K, D, w in SEG_PATH]
+    fwd = [_check_segments(c, d) for c in cases
+           for d in ("float32", "bfloat16")]
+    bwd = [_check_segment_bwd(B, S, n) for B, S in SEG_BWD
+           for n in SEG_SPLITS]
+    dec = [_check_decode_split(B, S, cur, n) for B, S, cur in SEG_DECODE
+           for n in SEG_SPLITS]
+    return {
+        "cases_checked": len(fwd) + len(bwd) + len(dec),
+        "k0_max_abs_err": max(e[0] for e in fwd),
+        "merged_max_abs_err": max(e[1] for e in fwd),
+        "bwd_max_rel_err": max(bwd),
+        "decode_lse_max_abs_err": max(e[0] for e in dec),
+        "decode_merged_max_abs_err": max(e[1] for e in dec),
+        "tolerance": TOL, "bwd_tolerance_of_largest_element": BWD_TOL,
+        "forward": [_time_segments(*shape, SEG_TIMED_SPLIT)
+                    for shape in SEG_PATH[:1]],
+        "backward": [_time_segment_bwd(*SEG_BWD[1], SEG_TIMED_SPLIT)],
+        "decode": [_time_decode_lse(4096, SEG_TIMED_SPLIT)]}
+
+
 def phase_kernels():
     from repro_torch.kernels import build
     res = {}
@@ -1023,7 +1355,8 @@ def phase_kernels():
         "state_max_abs_err_path": max(e[1] for e in path_errs),
         "tolerance": SSD_TOL,
         "hgmma_instructions": hgmma["ssd_scan"],
-        "shapes": [_time_ssd(B, L) for B, L in PREFILL_SHAPES]}
+        # the prefill shapes, then the train step's call (4, 1024)
+        "shapes": [_time_ssd(B, L) for B, L in PREFILL_SHAPES + [(4, 1024)]]}
 
     errs = [_check_ssd_bwd(c, d, w) for c in SSD_BWD_CASES
             for d in ("float32", "bfloat16") for w in (False, True)]
@@ -1043,8 +1376,14 @@ def phase_kernels():
         "hmma_instructions": counts["ssd_scan_bwd"][1],
         "ptxas": build.kernel_resources("ssd_scan_bwd", SSD_BWD_KERNELS),
         "shapes": [_time_ssd_bwd(B, L) for B, L in SSD_BWD_TIMED]}
+    seg = _segment_checks()
+    res["flash_attention"]["k0"] = seg["forward"][0]
+    res["flash_attention_bwd"]["k0"] = seg["backward"][0]
+    res["flash_decode"]["lse"] = seg["decode"][0]
     for r in res.values():
         emit(r)
+    emit({"phase": "kernels", "ok": True, "check": "context_segments",
+          **seg})
     return res
 
 
@@ -2039,6 +2378,265 @@ def _sharded_launcher(train_res):
             "launches_per_step": per_step}
 
 
+def _gemm_ms(dev):
+    """Device ms of the profiled GEMM kernels (cuBLAS's and CUTLASS's, by
+    name) and their count."""
+    gemm = [e for e in dev if re.search(r"gemm|xmma|nvjet|cutlass", e.key,
+                                        re.I) and "flash" not in e.key]
+    return (sum(getattr(e, "self_device_time_total", 0) for e in gemm) / 1e3,
+            sum(e.count for e in gemm))
+
+
+@contextlib.contextmanager
+def _drop_log():
+    """While open, the dropped (token, expert) pairs of each expert-parallel
+    dispatch, one count tensor a call, appended to the list it yields
+    (``moe._dispatch_tables`` wrapped)."""
+    from repro_torch.models import moe
+    log, tables = [], moe._dispatch_tables
+
+    def counted(*args):
+        tok, slot = tables(*args)
+        log.append((slot < 0).sum())
+        return tok, slot
+    moe._dispatch_tables = counted
+    try:
+        yield log
+    finally:
+        moe._dispatch_tables = tables
+
+
+def _moe_drop_table(p, cfg, h):
+    """(top_p, top_i, kept (N, k) bool) of the expert-parallel path's
+    router and dispatch on ``h`` (B, S, d), at its capacity for B*S
+    tokens (one chunk)."""
+    from repro_torch.models import moe
+    x = h.reshape(-1, h.shape[-1])
+    _, capacity = moe._capacity(cfg, x.shape[0])
+    top_p, top_i, _ = moe._router(p, cfg, x)
+    _, slot = moe._dispatch_tables(top_i, cfg.moe.num_experts, capacity)
+    return top_p, top_i, slot >= 0
+
+
+def _masked_dense(p, cfg, h, top_p, top_i, kept):
+    """Plain masked-dense MoE: every expert on every token (the dense
+    path's products), combined over the kept pairs only, in f32 in top-k
+    order."""
+    import torch
+    import torch.nn.functional as F
+    x = h.reshape(-1, h.shape[-1])
+    g = torch.einsum("nd,edf->nef", x, p["w_gate"])
+    u = torch.einsum("nd,edf->nef", x, p["w_in"])
+    y = torch.einsum("nef,efd->ned", F.silu(g.float()).to(x.dtype) * u,
+                     p["w_out"])
+    chosen = y.gather(1, top_i[..., None].expand(-1, -1, y.shape[-1]))
+    w = top_p * kept
+    out = chosen[:, 0].float() * w[:, 0:1]
+    for j in range(1, cfg.moe.top_k):
+        out = out + chosen[:, j].float() * w[:, j:j + 1]
+    return out.to(x.dtype).reshape(h.shape)
+
+
+def _check_expert_blocks(p):
+    """``moe._expert_ffn_blocks`` on random bf16 rows with layer ``p``'s
+    weights at each of MOE_BLOCKS blocks (an odd count with its last block
+    one row short, zero-padded): the first, middle and last blocks' bits
+    equal to ``moe._expert_ffn`` on that block alone. Returns MOE_BLOCKS."""
+    import torch
+    from repro_torch.models import moe
+    w = (p["w_gate"], p["w_in"], p["w_out"])
+    E, d = w[0].shape[:2]
+    R = moe.EXPERT_ROWS
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((E, max(MOE_BLOCKS) * R, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    for nb in MOE_BLOCKS:
+        xs = x[:, :nb * R].clone()
+        short = nb % 2
+        if short:
+            xs[:, -1] = 0
+        y = moe._expert_ffn_blocks(xs[:, :nb * R - short], *w)
+        for i in sorted({0, nb // 2, nb - 1}):
+            got = y[:, i * R:(i + 1) * R]
+            alone = moe._expert_ffn(xs[:, i * R:(i + 1) * R], *w)
+            if not torch.equal(got, alone[:, :got.shape[1]]):
+                die("sharded", f"{MOE_ARCH} expert products: block {i} of "
+                               f"{nb} differs from a call of it alone")
+        del xs, y
+    return list(MOE_BLOCKS)
+
+
+def _moe_layers(params):
+    """Each MoE layer's weights, in layer order: the stacked groups' (one
+    slice of the leading ``layers`` dim each), then the leftover blocks'."""
+    from repro_torch.utils import tree_map
+    out = []
+    for group in params["stack"]:
+        if "moe" in group:
+            n = next(iter(group["moe"].values())).shape[0]
+            out += [tree_map(lambda a, i=i: a[i], group["moe"])
+                    for i in range(n)]
+    return out + [b["moe"] for b in params["leftover"] if "moe" in b]
+
+
+def _sharded_moe(mesh):
+    """Full-width qwen3-moe-235b-a22b (MOE_LAYERS layers, weights drawn on
+    the card) through the (1, 1) mesh, where moe_apply takes the
+    expert-parallel path: prefill at PREFILL_SHAPES and N_DECODE greedy
+    decode steps through build_sharded_step (launches, the dropped pairs of
+    each call); one MoE block against _masked_dense with the same drop
+    table (bf16, rtol = atol = 2e-2); two calls bit for bit; a token with
+    no dropped pair in calls of MOE_ROWS tokens, bit for bit; the expert
+    GEMMs' device time of the MOE_LAYERS blocks on one (1, 2048) input,
+    expert-parallel beside dense, in turns."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import (make_rules, replicated,
+                                                  use_rules)
+    from repro_torch.distributed.steps import build_sharded_step
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.utils import tree_map
+    cfg = _path_config(MOE_ARCH)
+    params = get_bundle(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    batches = {bs: _inputs(cfg, *bs, g) for bs in PREFILL_SHAPES}
+    res = {"model": MOE_ARCH, "layers": cfg.num_layers, "calls": []}
+    with _drop_log() as drops:
+        _zero_counts()                      # the sharded MoE path starts
+        for (B, S), (batch, start) in batches.items():
+            L = start + N_DECODE
+            pre = build_sharded_step(cfg, mesh, ShapeSpec(
+                "prefill", "prefill", S, B), cache_len=L)
+            dec = build_sharded_step(cfg, mesh, ShapeSpec(
+                "decode", "decode", L, B))
+            drops.clear()
+            secs = [_wall_s(lambda: pre.fn(params, batch)) for _ in range(3)]
+            n_pre = int(sum(drops).item()) // 3
+            tok, cache = pre.fn(params, batch)
+            toks = [_whole(tok)]
+            drops.clear()
+            for i in range(N_DECODE):
+                tok, cache = dec.fn(params, cache, tok, start + i)
+                toks.append(_whole(tok))
+            n_dec = int(sum(drops).item())
+            toks = torch.cat(toks, dim=1).cpu()
+            del cache
+            if toks.shape != (B, N_DECODE + 1) or not (
+                    (toks >= 0) & (toks < cfg.vocab_size)).all():
+                die("sharded", f"{MOE_ARCH} ({B}, {S}): bad tokens")
+            res["calls"].append({
+                "batch": B, "seq": S, "mode": pre.rules["_mode"],
+                "prefill_ms_p50": float(np.median(secs)) * 1e3,
+                "prefill_dropped_pairs": n_pre,
+                "prefill_pairs": B * S * cfg.moe.top_k * cfg.num_layers,
+                "decode_dropped_pairs": n_dec, "tokens": toks.tolist()})
+        torch.cuda.synchronize()
+        # 4 prefill calls (3 timed, 1 decoded from) per shape
+        launches = _read_counts()           # ... and ends
+        per_shape = {"flash_attention": 4 * cfg.num_layers,
+                     "flash_decode": N_DECODE * cfg.num_layers}
+        want = {"flash_attention": per_shape["flash_attention"]
+                * len(batches), "flash_attention_bwd": 0,
+                "flash_decode": per_shape["flash_decode"] * len(batches),
+                "ssd_scan": 0, "ssd_scan_bwd": 0}
+        if launches != want:
+            die("sharded", f"{MOE_ARCH}: launches {launches}, expected "
+                           f"{want}")
+        res["launches"], res["launches_expected"] = launches, want
+
+        # one MoE block (layer 0's weights) on the mesh
+        layers = _moe_layers(params)
+        p = layers[0]
+        rules = make_rules(mesh, cfg, "prefill",
+                           ShapeSpec("prefill", "prefill", 2048, 1))
+        rep = tree_map(lambda t: distribute_tensor(t, mesh, replicated(mesh)),
+                       p)
+
+        def block(h):
+            with use_rules(mesh, rules), torch.no_grad():
+                return _whole(moe.moe_apply(rep, cfg, distribute_tensor(
+                    h, mesh, replicated(mesh))))
+        # a component every token shares skews the routing, so that some
+        # experts overflow their capacity and the block drops pairs
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        h = (torch.randn((1, max(MOE_ROWS), cfg.d_model), generator=gen,
+                         device="cuda")
+             + torch.randn((cfg.d_model,), generator=gen, device="cuda")
+             ).to(torch.bfloat16)
+        h0 = h[:, :MOE_ROWS[0]]
+        drops.clear()
+        got = block(h0)
+        dropped = int(sum(drops).item())
+        top_p, top_i, kept = _moe_drop_table(p, cfg, h0)
+        want_out = _masked_dense(p, cfg, h0, top_p, top_i, kept)
+        err, ok = _allclose_err(got, want_out, TOL["bfloat16"])
+        if not ok or not 0 < dropped == int((~kept).sum().item()):
+            die("sharded", f"{MOE_ARCH} MoE block against masked dense: "
+                           f"max abs err {err}, dropped {dropped} vs "
+                           f"{int((~kept).sum().item())}")
+        again = block(h0)
+        if not torch.equal(got, again):
+            die("sharded", f"{MOE_ARCH} MoE block: two calls differ")
+        # a token kept in every call: its bits at 2048, 2049 and 1 tokens
+        kept_all = kept.all(-1) & _moe_drop_table(p, cfg, h)[2][
+            :MOE_ROWS[0]].all(-1)
+        t = int(torch.nonzero(kept_all)[0, 0].item())
+        at_more = block(h)
+        at_one = block(h[:, t:t + 1])
+        both = torch.nonzero(kept_all)[:, 0]
+        same = (torch.equal(got[0, both], at_more[0, both])
+                and torch.equal(got[0, t], at_one[0, 0]))
+        if not same:
+            die("sharded", f"{MOE_ARCH} MoE block: a kept token's output "
+                           f"depends on the token count")
+        res["block"] = {
+            "tokens": MOE_ROWS[0], "dropped_pairs": dropped,
+            "pairs": MOE_ROWS[0] * cfg.moe.top_k,
+            "capacity": moe._capacity(cfg, MOE_ROWS[0])[1],
+            "max_abs_err_vs_masked_dense": err,
+            "tolerance": TOL["bfloat16"], "repeat_bit_equal": True,
+            "kept_tokens_in_2048_and_2049": int(kept_all.sum().item()),
+            "kept_token_bit_equal_at": list(MOE_ROWS), "token": t,
+            "expert_blocks_bit_equal_at": _check_expert_blocks(p)}
+
+        # the expert GEMMs of the MOE_LAYERS blocks on one (1, 2048) input:
+        # the expert-parallel path and the dense one, in turns
+        reps = [tree_map(lambda t: distribute_tensor(
+            t, mesh, replicated(mesh)), q) for q in layers]
+        hd = distribute_tensor(h0, mesh, replicated(mesh))
+
+        def ep():
+            with use_rules(mesh, rules), torch.no_grad():
+                for q in reps:
+                    moe.moe_apply(q, cfg, hd)
+            torch.cuda.synchronize()
+
+        def dense():
+            with torch.no_grad():
+                for q in layers:
+                    moe.moe_apply(q, cfg, h0)
+            torch.cuda.synchronize()
+        gemm = {}
+        for name, fn in (("dense", dense), ("expert_parallel", ep),
+                         ("expert_parallel_2", ep), ("dense_2", dense)):
+            fn()
+            dev, _, sessions = _device_events(fn)
+            ms, n = _gemm_ms(dev)
+            gemm[name] = {"gemm_ms": ms, "gemm_kernels": n,
+                          "busy_ms": sum(getattr(e, "self_device_time_total",
+                                                 0) for e in dev) / 1e3,
+                          "profile_sessions_kernels": sessions}
+        res["expert_gemms_4_blocks_1x2048"] = gemm
+        res["dense_expert_gemms_ms_pr11"] = 50.30
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_sharded(train_res):
     """The sharded phase (see SHARDED_TRAIN): NCCL with one rank, a (1, 1)
     mesh, qwen2-0.5b's train, prefill and decode, mamba2-130m's train, the
@@ -2074,6 +2672,12 @@ def phase_sharded(train_res):
              "launcher": _sharded_launcher(train_res)}
         emit(r)
         res["launcher"] = r
+        r = {"phase": "sharded", "ok": True, "model": MOE_ARCH,
+             "mesh": {"shape": [1, 1], "axes": ["data", "model"],
+                      "backend": "nccl"},
+             "expert_parallel": _sharded_moe(mesh)}
+        emit(r)
+        res[MOE_ARCH] = r
     finally:
         dist.destroy_process_group()
     return res
@@ -2579,7 +3183,7 @@ def main():
             if n:
                 by_path[name][f"train {arch}"] = n
     for r in sharded.values():
-        for part in ("train", "serve", "launcher"):
+        for part in ("train", "serve", "launcher", "expert_parallel"):
             for name, n in r.get(part, {}).get("launches", {}).items():
                 if n:
                     by_path[name][f"sharded {r['model']} {part}"] = n
@@ -2669,6 +3273,15 @@ def main():
         "library_note": shape["library_note"],
         "shape": {k: shape[k] for k in ("B", "L", "H", "P", "N", "chunk",
                                         "dtype")}})
+    variant = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for line, key in zip(lines[:4], ("lse", "k0", None, "k0")):
+        if key is not None:           # the k0 and lse variants' rows
+            v = kern[line["name"]][key]
+            line[f"{key}_variant"] = {
+                **{k: v[k] for k in variant},
+                **{k: v[k] for k in ("S", "segments", "shards", "k0",
+                                     "all_segments_ms", "whole_call_ms",
+                                     "without_lse_ms") if k in v}}
     emit({"kernels": lines})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

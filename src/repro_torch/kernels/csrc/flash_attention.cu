@@ -62,6 +62,15 @@
 // forward saves it for csrc/flash_attention_bwd.cu. Serving and prefill pass
 // null, and the kernels then store nothing more.
 //
+// Key offset k0 (the segment-parallel context attention of
+// src/repro/models/flash_xla.py::_seg_fwd): key row j sits at absolute position
+// k0 + j, query row i at i. Every position test (the live key tiles, the edge
+// test, the causal and window masks) runs on qp - k0 against the key row, so
+// k0 = 0 is the whole-sequence call. A q tile with no live key tile walks
+// nothing and writes out = 0 and lse = NEG_INF + log(1e-37); a row whose live
+// tiles hold no key it may see ends with m = NEG_INF (its lse ~ NEG_INF + log
+// of the keys walked). Either merges with weight exp(lse - lse_tot) = 0.
+//
 // Layout: q (B, Sq, H, D), k and v (B, Skv, K, D) are read through their
 // strides (the head dim contiguous; for bf16 the base 16-byte aligned and
 // every other stride a multiple of 16 bytes, as TMA needs: the wrapper
@@ -116,7 +125,7 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                      float* __restrict__ lse, int H, int G, int Sq, int Skv, int D, int causal,
-                     int window, float cap, float scale) {
+                     int window, int k0, float cap, float scale) {
   using Gm = Geom<PD>;
   constexpr int PW = Gm::PW, NP = Gm::NP;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -128,10 +137,11 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H, kh = h / G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;            // longest first
+  const int qk = q0 - k0;                                      // q0 against the key rows
 
   // live keys: [k_begin, k_end), walked in whole tiles
-  const int k_begin = window ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(Skv, q0 + BQ) : Skv;
+  const int k_begin = window ? max(0, qk - window + 1) : 0;
+  const int k_end = causal ? min(Skv, qk + BQ) : Skv;
   const int t_first = (k_begin / BK) * BK;
   const int n_tiles = k_end > t_first ? (k_end - t_first + BK - 1) / BK : 0;
 
@@ -185,8 +195,8 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
     fence_regs(s);
 
     // online softmax on the fragment: rows r_lo (i = 0) and r_lo + 8 (i = 1)
-    const bool edge = t0 + BK > Skv || (causal && t0 + BK - 1 > q0) ||
-                      (window && q0 + BQ - 1 - t0 >= window);
+    const bool edge = t0 + BK > Skv || (causal && t0 + BK - 1 > qk) ||
+                      (window && qk + BQ - 1 - t0 >= window);
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int n8 = 0; n8 < 8; ++n8)
@@ -197,7 +207,7 @@ flash_attention_bf16(const __grid_constant__ CUtensorMap tq,
           float x = s[4 * n8 + 2 * i + j] * scale;
           if (cap != 0.f) x = cap * tanhf(x / cap);
           if (edge) {
-            const int kp = t0 + 8 * n8 + c_lane + j, qp = q0 + r_lo + 8 * i;
+            const int kp = t0 + 8 * n8 + c_lane + j, qp = qk + r_lo + 8 * i;
             bool ok = kp < Skv;
             if (causal) ok = ok && qp >= kp;
             if (window) ok = ok && qp - kp < window;
@@ -275,7 +285,7 @@ template <int PD>
 int launch_bf16(const void* q, long long q_sb, long long q_ss, long long q_sh, const void* k,
                 long long k_sb, long long k_ss, long long k_sh, const void* v, long long v_sb,
                 long long v_ss, long long v_sh, void* out, float* lse, int B, int H, int G,
-                int Sq, int Skv, int D, int causal, int window, float cap, float scale,
+                int Sq, int Skv, int D, int causal, int window, int k0, float cap, float scale,
                 cudaStream_t stream) {
   using Gm = Geom<PD>;
   const int K = H / G;
@@ -295,7 +305,7 @@ int launch_bf16(const void* q, long long q_sb, long long q_ss, long long q_sh, c
   dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   flash_attention_bf16<PD><<<grid, WG_THREADS, Gm::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, H, G, Sq, Skv, D, causal, window,
-      cap, scale);
+      k0, cap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -328,7 +338,7 @@ flash_attention_f32(const float* __restrict__ q, int64_t q_sb, int64_t q_ss, int
                     const float* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                     const float* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sh,
                     float* __restrict__ out, float* __restrict__ lse, int H, int G, int Sq,
-                    int Skv, int D, int causal, int window, float cap, float scale) {
+                    int Skv, int D, int causal, int window, int k0, float cap, float scale) {
   extern __shared__ float smem[];
   const int ldk = D + 1;                 // padded rows: no bank conflicts
   const int ldp = BK + 1;
@@ -361,9 +371,10 @@ flash_attention_f32(const float* __restrict__ q, int64_t q_sb, int64_t q_ss, int
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  // live keys: [k_begin, k_end)
-  const int k_begin = window ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(Skv, q0 + BQ) : Skv;
+  // live keys: [k_begin, k_end), positions against the key rows (qk = q0 - k0)
+  const int qk = q0 - k0;
+  const int k_begin = window ? max(0, qk - window + 1) : 0;
+  const int k_end = causal ? min(Skv, qk + BQ) : Skv;
 
   for (int t0 = (k_begin / BK) * BK; t0 < k_end; t0 += BK) {
     __syncthreads();                     // qs written / last tile's readers done
@@ -399,7 +410,7 @@ flash_attention_f32(const float* __restrict__ q, int64_t q_sb, int64_t q_ss, int
 
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      const int qp = q0 + ty + 16 * i;
+      const int qp = qk + ty + 16 * i;
       float tmax = NEG_INF;
 #pragma unroll
       for (int j = 0; j < KCOLS; ++j) {
@@ -467,7 +478,7 @@ int launch_f32_dc(const void* q, long long q_sb, long long q_ss, long long q_sh,
                   const void* k, long long k_sb, long long k_ss, long long k_sh,
                   const void* v, long long v_sb, long long v_ss, long long v_sh,
                   void* out, float* lse, int B, int H, int G, int Sq, int Skv, int D,
-                  int causal, int window, float cap, float scale, cudaStream_t stream) {
+                  int causal, int window, int k0, float cap, float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(D);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(flash_attention_f32<DC>,
@@ -480,7 +491,7 @@ int launch_f32_dc(const void* q, long long q_sb, long long q_ss, long long q_sh,
       static_cast<const float*>(q), q_sb, q_ss, q_sh,
       static_cast<const float*>(k), k_sb, k_ss, k_sh,
       static_cast<const float*>(v), v_sb, v_ss, v_sh,
-      static_cast<float*>(out), lse, H, G, Sq, Skv, D, causal, window, cap, scale);
+      static_cast<float*>(out), lse, H, G, Sq, Skv, D, causal, window, k0, cap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -493,7 +504,8 @@ int flash_attention_max_d() { return MAX_D; }
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor cores, TMA).
 // Strides are in elements. out is a contiguous (B, Sq, H, D); lse, when not
-// null, a contiguous f32 (B, H, Sq) that receives the row log-sum-exp.
+// null, a contiguous f32 (B, H, Sq) that receives the row log-sum-exp. k0:
+// the absolute position of key row 0 (0 for a whole sequence).
 // Returns the cudaError_t of the launch (0 = success); the caller raises on
 // nonzero.
 int flash_attention_launch(int dtype,
@@ -501,10 +513,11 @@ int flash_attention_launch(int dtype,
                            const void* k, long long k_sb, long long k_ss, long long k_sh,
                            const void* v, long long v_sb, long long v_ss, long long v_sh,
                            void* out, float* lse, int B, int H, int G, int Sq, int Skv, int D,
-                           int causal, int window, float cap, float scale, void* stream) {
+                           int causal, int window, int k0, float cap, float scale,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_ARGS q, q_sb, q_ss, q_sh, k, k_sb, k_ss, k_sh, v, v_sb, v_ss, v_sh, out, lse, B, H, \
-                G, Sq, Skv, D, causal, window, cap, scale, st
+                G, Sq, Skv, D, causal, window, k0, cap, scale, st
   if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if (D <= 16) return launch_f32_dc<1>(FA_ARGS);

@@ -12,7 +12,12 @@
 // dout's type before dv = p^T dout; ds = p * (dout v^T - delta), times
 // (1 - t^2) under the softcap, rounded to q's type before dq = ds k and
 // dk = ds^T q; dq and dk carry the scale once, at the end; every sum in f32.
-// A masked pair contributes nothing (p = 0).
+// A masked pair contributes nothing (p = 0). With a key offset `koff` (key
+// row j at absolute position koff + j, the segment-parallel context
+// attention of flash_xla.py::_make_seg_flash, whose bwd this is then per
+// segment) every position test runs on the query row minus koff; given the
+// merged out and lse of all segments, dk and dv are the segment's own and dq
+// its part of the sum over segments.
 //
 // Bound: operations. Per live (q, k) pair the backward needs 10*D flops
 // (the scores, dout v^T, dv, dk and dq, 2*D each) against reading q, k, v,
@@ -121,8 +126,10 @@ struct Strides {
   int64_t b, s, h;
 };
 
+// koff: the absolute position of key row 0 (the segment-parallel context
+// attention's key offset; 0 for a whole sequence). Query row i sits at i.
 struct Problem {
-  int B, H, G, Sq, Skv, D, causal, window;
+  int B, H, G, Sq, Skv, D, causal, window, koff;
   float cap, scale;
 };
 
@@ -159,10 +166,12 @@ __device__ __forceinline__ void load_tile(float* dst, const float* base, Strides
   }
 }
 
+// whether query row qp sees key row kp (at position pr.koff + kp)
 __device__ __forceinline__ bool live(const Problem& pr, int qp, int kp) {
   bool ok = qp < pr.Sq && kp < pr.Skv;
-  if (pr.causal) ok = ok && qp >= kp;
-  if (pr.window) ok = ok && qp - kp < pr.window;
+  const int qk = qp - pr.koff;
+  if (pr.causal) ok = ok && qk >= kp;
+  if (pr.window) ok = ok && qk - kp < pr.window;
   return ok;
 }
 
@@ -224,8 +233,8 @@ attn_bwd_dkdv(const float* __restrict__ q, Strides sq, const float* __restrict__
     for (int c = 0; c < DC; ++c) adk[i][c] = adv[i][c] = 0.f;
 
   // queries that can see keys [k0, k0 + BT): [q_lo, q_hi)
-  const int q_lo = pr.causal ? k0 : 0;
-  const int q_hi = pr.window ? min(pr.Sq, k0 + BT - 1 + pr.window) : pr.Sq;
+  const int q_lo = pr.causal ? k0 + pr.koff : 0;
+  const int q_hi = pr.window ? min(pr.Sq, k0 + pr.koff + BT - 1 + pr.window) : pr.Sq;
 
   for (int g = 0; g < pr.G; ++g) {
     const int h = kh * pr.G + g;
@@ -356,8 +365,9 @@ attn_bwd_dq(const float* __restrict__ q, Strides sq, const float* __restrict__ k
     for (int c = 0; c < DC; ++c) adq[i][c] = 0.f;
 
   // live keys: [k_begin, k_end), as the forward walks them
-  const int k_begin = pr.window ? max(0, q0 - pr.window + 1) : 0;
-  const int k_end = pr.causal ? min(pr.Skv, q0 + BT) : pr.Skv;
+  const int qk = q0 - pr.koff;
+  const int k_begin = pr.window ? max(0, qk - pr.window + 1) : 0;
+  const int k_end = pr.causal ? min(pr.Skv, qk + BT) : pr.Skv;
 
   for (int t0 = (k_begin / BT) * BT; t0 < k_end; t0 += BT) {
     __syncthreads();                     // q/dout written / last tile's readers done
@@ -731,9 +741,10 @@ __device__ __forceinline__ void dkdv_block(const CUtensorMap* tq, const CUtensor
     wgmma_wait<1>();
     fence_regs(s);
 
+    const int kabs = ch.k0 + pr.koff;     // the key tile's first position
     const bool edge = t0 + BM > pr.Sq || ch.k0 + BM > pr.Skv ||
-                      (pr.causal && ch.k0 + BM - 1 > t0) ||
-                      (pr.window && t0 + BM - 1 - ch.k0 >= pr.window);
+                      (pr.causal && kabs + BM - 1 > t0) ||
+                      (pr.window && t0 + BM - 1 - kabs >= pr.window);
     uint32_t pa[4][4];                     // P^T, bf16, A over the queries
     if (pr.cap == 0.f)
       probs_t<false>(pr, s, pa, stat, t0, ch.k0, r_lo, c_lane, edge);
@@ -839,8 +850,9 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* tq, const CUtensorMa
   const int n_qt = (pr.Sq + BM - 1) / BM;
 
   // live keys: [k_begin, k_end), walked in whole tiles, as the forward does
-  const int k_begin = pr.window ? max(0, q0 - pr.window + 1) : 0;
-  const int k_end = pr.causal ? min(pr.Skv, q0 + BM) : pr.Skv;
+  const int qk = q0 - pr.koff;
+  const int k_begin = pr.window ? max(0, qk - pr.window + 1) : 0;
+  const int k_end = pr.causal ? min(pr.Skv, qk + BM) : pr.Skv;
   const int t_first = (k_begin / BM) * BM;
   const int n_tiles = k_end > t_first ? (k_end - t_first + BM - 1) / BM : 0;
 
@@ -890,8 +902,8 @@ __device__ __forceinline__ void dq_block(const CUtensorMap* tq, const CUtensorMa
     wgmma_wait<1>();
     fence_regs(s);
 
-    const bool edge = t0 + BM > pr.Skv || q0 + BM > pr.Sq || (pr.causal && t0 + BM - 1 > q0) ||
-                      (pr.window && q0 + BM - 1 - t0 >= pr.window);
+    const bool edge = t0 + BM > pr.Skv || q0 + BM > pr.Sq || (pr.causal && t0 + BM - 1 > qk) ||
+                      (pr.window && qk + BM - 1 - t0 >= pr.window);
     if (pr.cap == 0.f)
       probs_q<false>(pr, s, l2, q0, t0, r_lo, c_lane, edge);
     else
@@ -1091,7 +1103,9 @@ int flash_attention_bwd_dkdv_blocks_per_sm(int D) {
 // panels * B * K * key tiles, and the dk/dv plan on the device (n_chunks
 // rows of 8 ints, one per chunk of a (panel, b, kv head):
 // flash_attention.py::dkdv_plan);
-// unused for float32. dq (B, Sq, H, D), dk and dv (B, Skv, K, D)
+// unused for float32. koff: the absolute position of key row 0 (query row
+// i at i; dq is then this segment's part, to be summed over segments, and lse
+// the whole row's). dq (B, Sq, H, D), dk and dv (B, Skv, K, D)
 // contiguous. Launches three kernels (float32) or two (bfloat16) on
 // `stream`; returns the first launch's cudaError_t that is not 0 (the
 // caller raises), else 0.
@@ -1103,14 +1117,14 @@ int flash_attention_bwd_launch(int dtype,
                                const void* dout, long long d_sb, long long d_ss, long long d_sh,
                                const float* lse, float* delta, float* part, int* count,
                                void* dq, void* dk, void* dv, int B, int H, int G, int Sq,
-                               int Skv, int D, int causal, int window, float cap, float scale,
-                               const int* plan, int n_chunks, void* stream) {
+                               int Skv, int D, int causal, int window, int koff, float cap,
+                               float scale, const int* plan, int n_chunks, void* stream) {
   if (D < 1 || D > MAX_D || G < 1 || H % G) return (int)cudaErrorInvalidValue;
   Args a{q, k, v, out, dout,
          {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},
          {o_sb, o_ss, o_sh}, {d_sb, d_ss, d_sh},
          lse, delta, dq, dk, dv, part, count, plan, n_chunks};
-  Problem pr{B, H, G, Sq, Skv, D, causal, window, cap, scale};
+  Problem pr{B, H, G, Sq, Skv, D, causal, window, koff, cap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_f32(a, pr, st);
   if (dtype == 1) return launch_bf16(a, pr, st);

@@ -62,6 +62,14 @@
 // model's cache is read in place; head h = kh*G + g as the reference's
 // reshape(B, 1, K, G, D).
 //
+// Optional row log-sum-exp: given a non-null `lse` (B, H) f32, the kernel
+// also writes lse = m + log(max(l, 1e-37)) of each query row, from the
+// (m, l) its block (or the cluster's merge) already holds, so that the
+// caller can merge this call's output with others over other keys (the
+// split-merge of a decode cache sharded over its slots across ranks). A row
+// with no live slot then writes out = 0 and lse = NEG_INF + log(1e-37): its
+// merge weight is 0. A null `lse` runs the code without it.
+//
 // Masked scores take the finite NEG_INF = -0.7 * FLT_MAX, never -inf: a
 // split (or warp) whose keys are all masked (common under a window or a
 // ring) then ends with m = NEG_INF and a finite l, and its merge weight is
@@ -97,11 +105,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // All blocks of the cluster call this with their partial (m_s[g], l_s[g],
 // part[g * ldp + d]) in shared memory; block rank 0 merges them into
-// ob[g * D + d] (wts and l_tot are its scratch). The first cluster.sync()
-// is also the block's barrier after writing its partial.
+// ob[g * D + d] (wts and l_tot are its scratch) and, where lse_row is not
+// null, writes lse_row[g] (a row with no live slot: out 0, the sentinel).
+// The first cluster.sync() is also the block's barrier after writing its
+// partial.
 template <typename T>
 __device__ void cluster_merge(float* m_s, float* l_s, float* part, int ldp, float* wts,
-                              float* l_tot, int G, int D, T* ob) {
+                              float* l_tot, int G, int D, T* ob, float* lse_row) {
   cg::cluster_group cluster = cg::this_cluster();
   const int n_split = (int)cluster.num_blocks(), tid = threadIdx.x;
   cluster.sync();
@@ -117,6 +127,12 @@ __device__ void cluster_merge(float* m_s, float* l_s, float* part, int ldp, floa
         l = fmaf(w, cluster.map_shared_rank(l_s, r)[tid], l);
       }
       l_tot[tid] = l;
+      if (lse_row != nullptr) {
+        const bool dead = m_max <= NEG_INF;
+        if (dead)
+          for (int r = 0; r < n_split; ++r) wts[r * MAX_G + tid] = 0.f;
+        lse_row[tid] = dead ? NEG_INF + logf(1e-37f) : m_max + logf(fmaxf(l, 1e-37f));
+      }
     }
     __syncthreads();
     for (int e = tid; e < G * D; e += THREADS) {
@@ -178,7 +194,8 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q, int64_t q_sb, int64_t q_s
                   const __nv_bfloat16* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sk,
                   const __nv_bfloat16* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sk,
                   const int* __restrict__ kpos, __nv_bfloat16* __restrict__ out,
-                  int K, int G, int S, int D, int cur, int window, float cap, float scale) {
+                  float* __restrict__ lse, int K, int G, int S, int D, int cur, int window,
+                  float cap, float scale) {
   using Gm = Bf16Geom<DP>;
   constexpr int TILE = Gm::TILE, NST = Gm::NST, LDB = Gm::LDB;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -381,14 +398,22 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q, int64_t q_sb, int64_t q_s
 
   const int H = K * G;
   __nv_bfloat16* ob = out + ((int64_t)b * H + kh * G) * D;
+  float* lse_row = lse != nullptr ? lse + (int64_t)b * H + kh * G : nullptr;
   for (int e = tid; e < G * D; e += THREADS) {
     const int g = e / D, d = e - g * D;
     const float* x = o_w + g * Gm::LDO + d;
     const float a = ((x[0] + x[16 * Gm::LDO]) + x[32 * Gm::LDO]) + x[48 * Gm::LDO];
-    if (n_split == 1) ob[e] = __float2bfloat16_rn(a / fmaxf(l_s[g], 1e-37f));
-    else o_w[g * Gm::LDO + d] = a;                         // the block's partial
+    if (n_split == 1) {
+      const bool dead = lse_row != nullptr && m_s[g] <= NEG_INF;
+      ob[e] = __float2bfloat16_rn(dead ? 0.f : a / fmaxf(l_s[g], 1e-37f));
+    } else {
+      o_w[g * Gm::LDO + d] = a;                            // the block's partial
+    }
   }
-  if (n_split > 1) cluster_merge(m_s, l_s, o_w, Gm::LDO, wts, l_tot, G, D, ob);
+  if (n_split == 1 && lse_row != nullptr && tid < G)
+    lse_row[tid] = m_s[tid] <= NEG_INF ? NEG_INF + logf(1e-37f)
+                                       : m_s[tid] + logf(fmaxf(l_s[tid], 1e-37f));
+  if (n_split > 1) cluster_merge(m_s, l_s, o_w, Gm::LDO, wts, l_tot, G, D, ob, lse_row);
 }
 
 // ------------------------------------------------------------------ f32 path
@@ -423,7 +448,8 @@ flash_decode_f32(const float* __restrict__ q, int64_t q_sb, int64_t q_sh,
                  const float* __restrict__ k, int64_t k_sb, int64_t k_ss, int64_t k_sk,
                  const float* __restrict__ v, int64_t v_sb, int64_t v_ss, int64_t v_sk,
                  const int* __restrict__ kpos, float* __restrict__ out,
-                 int K, int G, int S, int D, int cur, int window, float cap, float scale) {
+                 float* __restrict__ lse, int K, int G, int S, int D, int cur, int window,
+                 float cap, float scale) {
   using Gm = F32Geom;
   constexpr int TILE = Gm::TILE, CH = Gm::CH, NGH = Gm::NGH, GPT = Gm::GPT;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -616,18 +642,23 @@ flash_decode_f32(const float* __restrict__ q, int64_t q_sb, int64_t q_sh,
 
   const int H = K * G;
   float* ob = out + ((int64_t)b * H + kh * G) * D;
+  float* lse_row = lse != nullptr ? lse + (int64_t)b * H + kh * G : nullptr;
   if (n_split == 1) {                         // the whole cache in this block
 #pragma unroll
     for (int i = 0; i < MAX_G / 2; ++i) {
       const int g = pg + 2 * i;
       if (g >= G) continue;
       const float denom = fmaxf(l_s[g], 1e-37f);
+      const bool dead = lse_row != nullptr && m_s[g] <= NEG_INF;
 #pragma unroll
       for (int j = 0; j < MAX_D / 64; ++j) {
         const int d = pc + 64 * j;
-        if (d < D) ob[g * D + d] = acc[i][j] / denom;
+        if (d < D) ob[g * D + d] = dead ? 0.f : acc[i][j] / denom;
       }
     }
+    if (lse_row != nullptr && tid < G)
+      lse_row[tid] = m_s[tid] <= NEG_INF ? NEG_INF + logf(1e-37f)
+                                         : m_s[tid] + logf(fmaxf(l_s[tid], 1e-37f));
     return;
   }
 
@@ -642,7 +673,7 @@ flash_decode_f32(const float* __restrict__ q, int64_t q_sb, int64_t q_sh,
       if (d < D) part[g * D + d] = acc[i][j];
     }
   }
-  cluster_merge(m_s, l_s, part, D, wts, l_tot, G, D, ob);
+  cluster_merge(m_s, l_s, part, D, wts, l_tot, G, D, ob, lse_row);
 }
 
 // Launches `kernel` as a cluster of n_split blocks along x.
@@ -675,14 +706,16 @@ template <int DP>
 int launch_bf16(const void* q, long long q_sb, long long q_sh,
                 const void* k, long long k_sb, long long k_ss, long long k_sk,
                 const void* v, long long v_sb, long long v_ss, long long v_sk,
-                const int* kpos, void* out, int B, int K, int G, int S, int D, int n_split,
-                int cur, int window, float cap, float scale, cudaStream_t stream) {
+                const int* kpos, void* out, float* lse, int B, int K, int G, int S, int D,
+                int n_split, int cur, int window, float cap, float scale,
+                cudaStream_t stream) {
   using bf = __nv_bfloat16;
   return launch_cluster(flash_decode_bf16<DP>, n_split, B * K, Bf16Geom<DP>::SMEM, stream,
                         static_cast<const bf*>(q), (int64_t)q_sb, (int64_t)q_sh,
                         static_cast<const bf*>(k), (int64_t)k_sb, (int64_t)k_ss, (int64_t)k_sk,
                         static_cast<const bf*>(v), (int64_t)v_sb, (int64_t)v_ss, (int64_t)v_sk,
-                        kpos, static_cast<bf*>(out), K, G, S, D, cur, window, cap, scale);
+                        kpos, static_cast<bf*>(out), lse, K, G, S, D, cur, window, cap,
+                        scale);
 }
 
 }  // namespace
@@ -690,14 +723,15 @@ int launch_bf16(const void* q, long long q_sb, long long q_sh,
 extern "C" {
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores). Strides are
-// in elements. Key range of split i: [i*S/n_split, (i+1)*S/n_split).
+// in elements. Key range of split i: [i*S/n_split, (i+1)*S/n_split). lse:
+// null, or a contiguous f32 (B, H) that receives each row's log-sum-exp.
 // Returns the cudaError_t of the launch (0 = success); the caller raises on
 // nonzero.
 int flash_decode_launch(int dtype,
                         const void* q, long long q_sb, long long q_sh,
                         const void* k, long long k_sb, long long k_ss, long long k_sk,
                         const void* v, long long v_sb, long long v_ss, long long v_sk,
-                        const void* kpos, void* out,
+                        const void* kpos, void* out, float* lse,
                         int B, int K, int G, int S, int D, int n_split,
                         int cur, int window, float cap, float scale, void* stream) {
   const int* kp = static_cast<const int*>(kpos);
@@ -711,13 +745,13 @@ int flash_decode_launch(int dtype,
                           static_cast<const float*>(q), (int64_t)q_sb, (int64_t)q_sh,
                           static_cast<const float*>(k), (int64_t)k_sb, (int64_t)k_ss,
                           (int64_t)k_sk, static_cast<const float*>(v), (int64_t)v_sb,
-                          (int64_t)v_ss, (int64_t)v_sk, kp, static_cast<float*>(out), K, G,
-                          S, D, cur, window, cap, scale);
+                          (int64_t)v_ss, (int64_t)v_sk, kp, static_cast<float*>(out), lse, K,
+                          G, S, D, cur, window, cap, scale);
   }
   if (dtype == 1) {
     if (D % 8) return (int)cudaErrorInvalidValue;
-#define FD_ARGS q, q_sb, q_sh, k, k_sb, k_ss, k_sk, v, v_sb, v_ss, v_sk, kp, out, B, K, G, S, \
-                D, n_split, cur, window, cap, scale, st
+#define FD_ARGS q, q_sb, q_sh, k, k_sb, k_ss, k_sk, v, v_sb, v_ss, v_sk, kp, out, lse, B, K, G, \
+                S, D, n_split, cur, window, cap, scale, st
     if (D <= 64) return launch_bf16<64>(FD_ARGS);
     if (D <= 128) return launch_bf16<128>(FD_ARGS);
     return launch_bf16<256>(FD_ARGS);

@@ -22,7 +22,14 @@ hand-written kernels of ``csrc/flash_attention_bwd.cu``, on a CPU tensor
 
 Layout (the model's, read through strides, no copy): q (B, Sq, H, D);
 k, v (B, Skv, K, D); query head h reads kv head h // G with G = H // K.
-Query and key positions both start at 0.
+Query positions start at 0, key positions at ``k0`` (0 unless the keys are
+one segment of a longer sequence: ``models/flash_xla.py``'s
+segment-parallel path, where each segment's partial output and ``lse`` are
+merged, and each segment's backward runs against the merged ones). A query
+row that sees no key of a segment merges with weight 0: the kernel writes
+out 0 and lse NEG_INF + log(1e-37) for it (where its q tile has no live key
+tile), the plain version the mean of the masked keys and lse NEG_INF + log
+Skv; compare the two on the rows that see a key.
 """
 from __future__ import annotations
 
@@ -38,10 +45,11 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _mask(Sq: int, Skv: int, causal: bool, window: int, device):
-    """(Sq, Skv) bool: the (q, k) pairs attention keeps."""
+def _mask(Sq: int, Skv: int, causal: bool, window: int, device, k0: int = 0):
+    """(Sq, Skv) bool: the (q, k) pairs attention keeps, key row j at
+    position k0 + j."""
     qpos = torch.arange(Sq, device=device)[:, None]
-    kpos = torch.arange(Skv, device=device)[None, :]
+    kpos = k0 + torch.arange(Skv, device=device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     if causal:
         mask &= qpos >= kpos
@@ -51,7 +59,8 @@ def _mask(Sq: int, Skv: int, causal: bool, window: int, device):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          cap: float = 0.0, return_lse: bool = False):
+                          cap: float = 0.0, return_lse: bool = False,
+                          k0: int = 0):
     """Plain PyTorch version (port of ``ref.flash_attention_ref``, in the
     model layout): full scores in f32, masked with the finite NEG_INF,
     softmax, p rounded to v's dtype before the PV product. With
@@ -64,7 +73,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
     if cap:
         s = cap * torch.tanh(s / cap)
-    s = torch.where(_mask(Sq, Skv, causal, window, q.device), s, NEG_INF)
+    s = torch.where(_mask(Sq, Skv, causal, window, q.device, k0), s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -78,14 +87,17 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
-                              window: int = 0, cap: float = 0.0):
+                              window: int = 0, cap: float = 0.0, k0: int = 0):
     """Plain PyTorch backward (port of the ``bwd`` of
     ``repro/models/flash_xla.py::_make_flash``, with full scores in place of
     its key chunks): delta = rowsum(dout·out) in f32; the scores recomputed
     in f32 and p = exp(s - lse); p rounded to dout's dtype before dv;
     ds = p·(dp - delta), times (1 - t²) under a softcap, rounded to q's
     dtype before dq and dk; dq summed in f32 and scaled once at the end.
-    lse (B, H, Sq) f32. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    lse (B, H, Sq) f32. Returns (dq, dk, dv) in q's, k's and v's dtypes.
+    With keys from position ``k0`` and the merged out and lse of all
+    segments this is one segment's part of the ``bwd`` of
+    ``_make_seg_flash``: its own dk, dv and its share of dq."""
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
@@ -96,7 +108,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     if cap:
         t = torch.tanh(s / cap)
         s = cap * t
-    s = torch.where(_mask(Sq, Skv, causal, window, q.device), s, NEG_INF)
+    s = torch.where(_mask(Sq, Skv, causal, window, q.device, k0), s, NEG_INF)
     p = torch.exp(s - lse.float().reshape(B, K, G, Sq)[..., None])
     delta = torch.einsum("bqkgd,bqkgd->bkgq", do,
                          out.float().reshape(B, Sq, K, G, D))
@@ -119,8 +131,8 @@ def _kernel():
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         fn.argtypes = [I, P, L, L, L, P, L, L, L, P, L, L, L, P, P,
-                       I, I, I, I, I, I, I, I, ctypes.c_float, ctypes.c_float,
-                       P]
+                       I, I, I, I, I, I, I, I, I, ctypes.c_float,
+                       ctypes.c_float, P]
         fn.restype = I
         lib.flash_attention_max_d.argtypes = []
         lib.flash_attention_max_d.restype = I
@@ -186,16 +198,17 @@ def _strides(t):
 
 
 def _forward(q, k, v, causal: bool, window: int, cap: float,
-             want_lse: bool):
+             want_lse: bool, k0: int = 0):
     """(out, lse or None): the plain version on the CPU, the kernel on the
-    card (lse written only when asked for: a null pointer otherwise)."""
+    card (lse written only when asked for: a null pointer otherwise); keys
+    from position ``k0``."""
     if q.device.type == "cpu":
         if want_lse:
             return flash_attention_plain(q, k, v, causal=causal,
                                          window=window, cap=cap,
-                                         return_lse=True)
+                                         return_lse=True, k0=k0)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     cap=cap), None
+                                     cap=cap, k0=k0), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     launch, max_d = _kernel()
@@ -212,7 +225,7 @@ def _forward(q, k, v, causal: bool, window: int, cap: float,
         v.data_ptr(), *_strides(v),
         out.data_ptr(), lse.data_ptr() if want_lse else None,
         B, H, H // K, Sq, Skv, D, int(bool(causal)),
-        int(window), float(cap), D ** -0.5,
+        int(window), int(k0), float(cap), D ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -227,7 +240,7 @@ def _bwd_kernel():
     fn = lib.flash_attention_bwd_launch
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([I] + [P, L, L, L] * 5 + [P] * 7 + [I] * 8
+        fn.argtypes = ([I] + [P, L, L, L] * 5 + [P] * 7 + [I] * 9
                        + [ctypes.c_float, ctypes.c_float, P, I, P])
         fn.restype = I
         lib.flash_attention_bwd_max_d.argtypes = []
@@ -254,19 +267,21 @@ def bwd_panel(D: int):
 
 def _live_q_tiles(k0: int, Sq: int, causal: bool, window: int):
     """(first query row, live query tiles) the bf16 dk/dv kernel walks for
-    the key tile from k0."""
+    the key tile from position k0 (its row plus the key offset)."""
     q_lo = k0 if causal else 0
     q_hi = min(Sq, k0 + BWD_TILE - 1 + window) if window else Sq
     first = q_lo // BWD_TILE * BWD_TILE
     return first, (-(-(q_hi - first) // BWD_TILE) if q_hi > first else 0)
 
 
-def _longest_dq_walk(Sq: int, Skv: int, causal: bool, window: int) -> int:
-    """Key tiles the longest bf16 dq block walks (the forward's walk)."""
+def _longest_dq_walk(Sq: int, Skv: int, causal: bool, window: int,
+                     koff: int = 0) -> int:
+    """Key tiles the longest bf16 dq block walks (the forward's walk),
+    key row j at position koff + j."""
     most = 0
     for q0 in range(0, Sq, BWD_TILE):
-        k_begin = max(0, q0 - window + 1) if window else 0
-        k_end = min(Skv, q0 + BWD_TILE) if causal else Skv
+        k_begin = max(0, q0 - koff - window + 1) if window else 0
+        k_end = min(Skv, q0 - koff + BWD_TILE) if causal else Skv
         first = k_begin // BWD_TILE * BWD_TILE
         if k_end > first:
             most = max(most, -(-(k_end - first) // BWD_TILE))
@@ -275,7 +290,7 @@ def _longest_dq_walk(Sq: int, Skv: int, causal: bool, window: int) -> int:
 
 @functools.lru_cache(maxsize=512)
 def dkdv_plan(B: int, K: int, G: int, Sq: int, Skv: int, causal: bool,
-              window: int, panels: int, slots: int):
+              window: int, panels: int, slots: int, koff: int = 0):
     """(wt, rows) of the bf16 dk/dv blocks. Key tile j of a (panel, b, kv
     head) has G * nq_j items (its nq_j live query tiles, for each of the G
     query heads, heads in order: item i is query head kh * G + i // nq_j,
@@ -289,8 +304,9 @@ def dkdv_plan(B: int, K: int, G: int, Sq: int, Skv: int, causal: bool,
     block is longer than the card's share needs, and the chunks start before
     any longer block. Where a wt at most a quarter larger fits every chunk
     in one wave of ``slots``, it is taken: a chunk left to a second wave
-    would start only as the first ends."""
-    live = [_live_q_tiles(k0, Sq, causal, window)
+    would start only as the first ends. ``koff`` is the key offset: key
+    tile j starts at position koff + 64 j."""
+    live = [_live_q_tiles(koff + k0, Sq, causal, window)
             for k0 in range(0, Skv, BWD_TILE)]
     units = panels * B * K
 
@@ -298,7 +314,7 @@ def dkdv_plan(B: int, K: int, G: int, Sq: int, Skv: int, causal: bool,
         return sum(max(1, -(-G * n // wt)) for _, n in live)
 
     wt = max(1, -(-units * G * sum(n for _, n in live) // slots),
-             _longest_dq_walk(Sq, Skv, causal, window))
+             _longest_dq_walk(Sq, Skv, causal, window, koff))
     if units * blocks(wt) > slots:
         wt = next((w for w in range(wt + 1, wt + wt // 4 + 1)
                    if units * blocks(w) <= slots), wt)
@@ -312,11 +328,13 @@ def dkdv_plan(B: int, K: int, G: int, Sq: int, Skv: int, causal: bool,
 
 
 @functools.lru_cache(maxsize=512)
-def _dkdv_table(device, B, K, G, Sq, Skv, causal, window, panels, slots):
+def _dkdv_table(device, B, K, G, Sq, Skv, causal, window, panels, slots,
+                koff=0):
     """dkdv_plan's rows as a (blocks, 8) int32 tensor on ``device``,
     copied there once per shape (so a CUDA graph captures a call only after
     an eager call at its shape, as warm-up before a capture gives)."""
-    _, rows = dkdv_plan(B, K, G, Sq, Skv, causal, window, panels, slots)
+    _, rows = dkdv_plan(B, K, G, Sq, Skv, causal, window, panels, slots,
+                        koff)
     return torch.tensor(rows, dtype=torch.int32).to(device)
 
 
@@ -339,16 +357,17 @@ def _dkdv_slots(device, D: int) -> int:
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
-                        window: int = 0, cap: float = 0.0):
+                        window: int = 0, cap: float = 0.0, k0: int = 0):
     """(dq, dk, dv) of attention given the forward's out and lse (B, H, Sq)
-    f32 and the output gradient dout (B, Sq, H, D). CPU tensors run
+    f32 and the output gradient dout (B, Sq, H, D); keys from position
+    ``k0`` (a segment's part, given the merged out and lse). CPU tensors run
     :func:`flash_attention_bwd_plain`; CUDA tensors launch the kernels of
     ``csrc/flash_attention_bwd.cu`` (statistics, dk/dv, dq: one call, one
     count in ``flash_attention_bwd.launches``) or raise."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, window=window,
-                                         cap=cap)
+                                         cap=cap, k0=k0)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")
@@ -378,7 +397,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         # dk/dv chunks when a key tile is cut into several
         ap, panels = bwd_panel(D)
         table = _dkdv_table(q.device, B, K, H // K, Sq, Skv, bool(causal),
-                            int(window), panels, _dkdv_slots(q.device, D))
+                            int(window), panels, _dkdv_slots(q.device, D),
+                            int(k0))
         plan, n_chunks = table.data_ptr(), table.shape[0]
         n_stats = B * H * -(-Sq // BWD_TILE) * 2 * BWD_TILE
         n_count = panels * B * K * -(-Skv // BWD_TILE)
@@ -400,7 +420,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
           for x in (t.data_ptr(), *_strides(t))),
         lse.data_ptr(), delta.data_ptr(), part, count, dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, H // K, Sq, Skv, D,
-        int(bool(causal)), int(window), float(cap), D ** -0.5, plan, n_chunks,
+        int(bool(causal)), int(window), int(k0), float(cap), D ** -0.5, plan,
+        n_chunks,
         torch._C._cuda_getCurrentRawStream(q.get_device()))
     if rc != 0:
         raise RuntimeError(

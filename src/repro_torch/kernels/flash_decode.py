@@ -12,6 +12,13 @@ device raises.
 Layout (the model's, read through strides, no copy): q (B, H, D);
 k, v (B, S, K, D); kpos (S,) int32 absolute position per cache slot
 (< 0 = invalid). Head h = kh*G + g with G = H // K.
+
+With ``return_lse`` both versions also give each query row's log-sum-exp
+(B, H) f32, so that calls over disjoint slots (a cache sharded over its
+slots across ranks) merge as the kernel merges its cluster's splits
+(``models/flash_xla.py::merge``). A row with no live slot merges with
+weight 0: the kernel writes out 0 and lse NEG_INF + log(1e-37) for it, the
+plain version the mean of the masked slots and lse NEG_INF + log S.
 """
 from __future__ import annotations
 
@@ -32,10 +39,11 @@ _SM_COUNT: Dict[int, int] = {}
 
 
 def flash_decode_plain(q, k, v, kpos, cur, *, window: int = 0,
-                       cap: float = 0.0):
+                       cap: float = 0.0, return_lse: bool = False):
     """Plain PyTorch version (port of ``ref.flash_decode_ref``): full scores
     in f32, masked with the finite NEG_INF, softmax, p rounded to v's dtype
-    before the PV product."""
+    before the PV product. With ``return_lse`` also (B, H) f32
+    m + log(max(l, 1e-37))."""
     B, H, D = q.shape
     K = k.shape[2]
     G = H // K
@@ -47,10 +55,15 @@ def flash_decode_plain(q, k, v, kpos, cur, *, window: int = 0,
     if window:
         valid &= kpos > cur - window
     s = torch.where(valid, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / l
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).float(), v.float())
-    return out.to(v.dtype).reshape(B, H, D)
+    out = out.to(v.dtype).reshape(B, H, D)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(torch.clamp(l, min=1e-37)))[..., 0].reshape(B, H)
 
 
 def _kernel():
@@ -59,7 +72,7 @@ def _kernel():
     fn = lib.flash_decode_launch
     if fn.argtypes is None:
         P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [I, P, L, L, P, L, L, L, P, L, L, L, P, P,
+        fn.argtypes = [I, P, L, L, P, L, L, L, P, L, L, L, P, P, P,
                        I, I, I, I, I, I, I, I, ctypes.c_float,
                        ctypes.c_float, P]
         fn.restype = I
@@ -114,13 +127,16 @@ def _check(q, k, v, kpos):
         raise ValueError("flash_decode: kpos must be a contiguous int32 (S,)")
 
 
-def flash_decode(q, k, v, kpos, cur, *, window: int = 0, cap: float = 0.0):
-    """q (B,H,D); k, v (B,S,K,D); kpos (S,) -> (B,H,D) in q's dtype.
+def flash_decode(q, k, v, kpos, cur, *, window: int = 0, cap: float = 0.0,
+                 return_lse: bool = False):
+    """q (B,H,D); k, v (B,S,K,D); kpos (S,) -> (B,H,D) in q's dtype, and
+    with ``return_lse`` the rows' log-sum-exp (B,H) f32 too.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise. ``flash_decode.launches`` counts kernel launches."""
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, kpos, cur, window=window, cap=cap)
+        return flash_decode_plain(q, k, v, kpos, cur, window=window, cap=cap,
+                                  return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: no kernel for device {q.device}")
     _check(q, k, v, kpos)
@@ -129,19 +145,22 @@ def flash_decode(q, k, v, kpos, cur, *, window: int = 0, cap: float = 0.0):
     G = H // K
     n_split = split_plan(B, K, S, _sm_count(q.device))
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     rc = _kernel()(
         _DTYPES[q.dtype],
         q.data_ptr(), q.stride(0), q.stride(1),
         k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
         v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),
         kpos.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None,
         B, K, G, S, D, n_split, int(cur), int(window),
         float(cap), D ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError {rc}")
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0

@@ -21,9 +21,11 @@ counterpart). What it records, per rank, as rank 0 sees it:
 * flops: each local op's count by ``torch.utils.flop_counter``'s formulas.
   CPU shards run the kernels' plain versions, so these are the plain
   versions' flops (attention's full masked scores, the plain SSD scan);
-* collectives: every functional collective the DTensors issue
-  (``all_reduce``, ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
-  ``all_to_all_single``, ...) by kind, with its input bytes;
+* collectives: every functional collective the step issues, DTensor's
+  and the model's own (``all_reduce``, ``all_gather_into_tensor``,
+  ``reduce_scatter_tensor``, the expert-parallel MoE's differentiable
+  ``all_to_all_single``, the context attention's merge, ...) by kind, with
+  its input bytes;
 * memory: the local bytes of the arguments and outputs, and the peak: the
   arguments plus the most bytes the step's own local tensors held at once.
 
@@ -120,7 +122,9 @@ class _Recorder(TorchDispatchMode):
             self._track(out)
             packet = func._overloadpacket
             name = packet.__name__
-            if func.namespace == "_c10d_functional" and name != "wait_tensor":
+            if (func.namespace in ("_c10d_functional",
+                                   "_c10d_functional_autograd")
+                    and name != "wait_tensor"):
                 x = ts[0]
                 self.collectives.append(
                     {"kind": name,
@@ -216,10 +220,9 @@ def measure(step, cur_index: int = 0) -> dict:
     coll_bytes = sum(op["operand_bytes"] for op in rec.collectives)
     return {
         "mode": step.rules.get("_mode"),
-        # context mode's K/V (or cache) are gathered over the model axis
-        # for the local kernel call; the reference combines partial
-        # softmaxes across it instead
-        "context_attention": ("gathered" if step.rules.get("_mode")
+        # context mode's K/V (or cache) stay split over the sequence: each
+        # rank's partial softmax, merged once by lse, as the reference's
+        "context_attention": ("segmented" if step.rules.get("_mode")
                               == "context" else None),
         "devices": int(step.mesh.size()),
         "run_s": round(time.time() - t0, 2),

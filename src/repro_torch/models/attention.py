@@ -2,16 +2,19 @@
 (port of ``repro.models.attention``).
 
 ``attend_full`` runs its score/softmax/PV block through
-``kernels.ops.flash_attention`` and ``attend_decode`` through
+``models.flash_xla.flash_attention_xla`` (``kernels.ops.flash_attention``
+outside context mode) and ``attend_decode`` through
 ``kernels.ops.flash_decode``: the hand-written CUDA kernels on the card,
 their plain PyTorch versions on the CPU. Cross-attention (encoder-decoder
 models) takes its keys and values from the encoder output, applies no RoPE
 and is never causal; its decode cache is the encoder's K/V, never written.
 The reference's ``constrain`` calls sit at the same points (no-ops outside
 a mesh), and heads mode expands K/V to one head per query head where the
-KV heads do not shard (``_should_expand_kv``). Under a mesh the kernel
-wrappers gather context mode's sequence-sharded K/V (``kernels.ops``): the
-reference's segment-parallel combine (``_context_segments``) is not ported.
+KV heads do not shard (``_should_expand_kv``). In context mode
+``attend_full`` takes the reference's segment-parallel combine
+(``_context_segments``, ``models/flash_xla.py``): each rank of the model
+axis attends over its segment of K/V and the ranks merge by lse; decode
+merges each rank's cache shard the same way (``kernels.ops``).
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain, current_mesh_rules
+from repro_torch.distributed.sharding import (axis_sizes, constrain,
+                                              current_mesh_rules)
 from repro_torch.kernels import ops
+from repro_torch.models import flash_xla
 from repro_torch.models.layers import rope
 from repro_torch.models.params import ParamSpec
 
@@ -68,6 +73,15 @@ def _should_expand_kv(cfg: ModelConfig) -> bool:
     return rules.get("_mode") == "heads" and not rules.get("kv_heads")
 
 
+def _context_segments() -> int:
+    """Segment count for the combine-once context-parallel flash: the
+    model-axis size when context mode shards the KV sequence."""
+    mesh, rules = current_mesh_rules()
+    if mesh is None or rules is None or rules.get("_mode") != "context":
+        return 0
+    return int(axis_sizes(mesh).get("model", 0))
+
+
 def attend_full(p, cfg: ModelConfig, x, *, kind: str, positions,
                 x_kv=None, kv_positions=None, cross: bool = False,
                 causal: bool = True):
@@ -83,9 +97,10 @@ def attend_full(p, cfg: ModelConfig, x, *, kind: str, positions,
         G = q.shape[2] // k.shape[2]
         ke = k.repeat_interleave(G, dim=2)
         ve = v.repeat_interleave(G, dim=2)
-    out = ops.flash_attention(q, ke, ve, causal=causal and not cross,
-                              window=cfg.window if kind == "local" else 0,
-                              cap=cfg.attn_softcap)
+    out = flash_xla.flash_attention_xla(
+        q, ke, ve, causal=causal and not cross,
+        window=cfg.window if kind == "local" else 0, cap=cfg.attn_softcap,
+        segments=_context_segments())
     out = constrain(out, "batch", "seq", "heads", "head_dim")
     y = torch.einsum("bshx,hxd->bsd", out, p["w_o"])
     return constrain(y, "batch", "seq", "d_model"), (k, v)

@@ -80,7 +80,7 @@ def test_dryrun_main_writes_production_cell(tmp_path):
         c["count"] for c in rec["collectives"].values())
     # context mode decode at batch 128: the cache is gathered over the
     # sequence before the local kernel call
-    assert rec["context_attention"] == "gathered"
+    assert rec["context_attention"] == "segmented"
     assert "all_gather_into_tensor" in rec["collectives"]
 
 
@@ -88,3 +88,35 @@ def test_dryrun_skip_record():
     from repro_torch.launch.dryrun import run_cell
     rec = run_cell("qwen2-0.5b", "long_500k", "single")
     assert rec["status"] == "skipped" and rec["reason"]
+
+
+def test_dryrun_counts_expert_all_to_all_and_segmented_attention():
+    """Smoke qwen3-moe on a fake 4-rank (2, 2) mesh: the expert-parallel
+    path's all_to_all goes through the fake group and is counted; smoke
+    qwen2 (7 heads on a model axis of 2: context mode) records the
+    segment-parallel attention, whose merge all-reduces the outputs."""
+    code = textwrap.dedent("""
+        import json
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.distributed.steps import build_sharded_step
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import make_mesh
+        out = {}
+        with dryrun.fake_group(4):
+            mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
+            for arch in ("qwen3-moe-235b-a22b", "qwen2-0.5b"):
+                step = build_sharded_step(get_smoke_config(arch), mesh,
+                                          ShapeSpec("t", "train", 32, 8))
+                out[arch] = dryrun.measure(step)
+        print(json.dumps(out))
+    """)
+    res = json.loads(_python(["-c", code]).strip().splitlines()[-1])
+    moe, dense = res["qwen3-moe-235b-a22b"], res["qwen2-0.5b"]
+    assert moe["collectives"]["all_to_all_single"]["count"] > 0
+    assert moe["collectives"]["all_to_all_single"]["operand_bytes"] > 0
+    assert moe["context_attention"] is None
+    assert dense["mode"] == "context"
+    assert dense["context_attention"] == "segmented"
+    assert "all_to_all_single" not in dense["collectives"]
+    assert dense["collectives"]["all_reduce"]["count"] > 0
