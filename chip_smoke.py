@@ -115,7 +115,14 @@ prefill phase one per model):
              for 4 steps with a checkpoint at 2, its losses against the
              train phase's plain launcher's and its resume from step 2, bit
              for bit. Each with the sharded and the plain steps' times,
-             alternating (DTensor's host cost). Then full-width qwen3-moe
+             alternating (DTensor's host cost). The vocab-parallel layer
+             (distributed/vocab.py; no mesh with a model axis of more than
+             one rank runs on one card): qwen2-0.5b's table and one (8,
+             256) train batch's f32 logits cut into 16 vocab shards, the
+             per-shard bodies merged as the collectives merge them, against
+             the plain lookup (bit for bit) and the plain loss and logits
+             gradient (f32, 2e-4 relative), two calls bit for bit, and the
+             device ms of both, in turns. Then full-width qwen3-moe
              cut to 4 layers through the mesh, where MoE takes the
              expert-parallel path (capacity dispatch, drops): a prefill at
              (1, 2048) and (4, 512) and 16 greedy decode steps (launches,
@@ -409,6 +416,10 @@ SHARDED_TRAIN = {"qwen2-0.5b": ((8, 256), 3), "mamba2-130m": ((8, 1024), 2)}
 SHARDED_TIMED = 4
 SHARDED_PREFILL = (1, 2048)
 SHARDED_LAUNCH_STEPS, SHARDED_LAUNCH_CKPT = 4, 2
+# the vocab-parallel layer's per-shard bodies (distributed/vocab.py) on one
+# card: qwen2-0.5b's table and one train step's logits cut as the
+# production mesh's model axis cuts them; VOCAB_TURNS timings of each
+VOCAB_SHARDS, VOCAB_TOL, VOCAB_TURNS = 16, 2e-4, 3
 # the runtime phase's open-loop workload: Poisson arrivals per model for
 # RUNTIME_S seconds. The loop sends the next request only after the INFER
 # it is blocked in (qwen2's take ~45 ms), so 25 r/s per model sends ~34/s
@@ -2329,6 +2340,82 @@ def _sharded_serve(arch, mesh, params):
                    for k, v in secs.items()}}
 
 
+def _vocab_shards(arch, params):
+    """The vocab-parallel layer's per-shard bodies on the card: ``arch``'s
+    embedding table and the logits of one SHARDED_TRAIN batch (full width,
+    ``params``) cut into VOCAB_SHARDS vocab shards and merged here as the
+    model axis's collectives merge them (``embed_split``,
+    ``token_ll_split``), against the plain lookup (bit for bit) and the
+    plain loss and its logits gradient (VOCAB_TOL relative); two calls of
+    each, bit for bit; device ms of the lookup and of the loss's forward
+    and backward, shards beside plain, in turns."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import vocab
+    from repro_torch.distributed.steps import _token_ll
+    from repro_torch.models.registry import get_bundle
+    cfg = get_config(arch)
+    (B, S), _ = SHARDED_TRAIN[arch]
+    n = VOCAB_SHARDS
+    batch = SyntheticLM(cfg, ShapeSpec("custom_train", "train", S, B),
+                        seed=0).batch(0)
+    tokens, targets = (torch.as_tensor(batch[k]).cuda()
+                       for k in ("tokens", "targets"))
+    table = params["embed"]["embedding"]
+    rows = [vocab.embed_split(table, tokens, n) for _ in range(2)]
+    want_rows = table[tokens]
+    lookup_equal = all(r.dtype == want_rows.dtype
+                       and torch.equal(r, want_rows) for r in rows)
+    with torch.no_grad():
+        logits = get_bundle(cfg).train_logits(params, {"tokens": tokens})
+
+    def plain_ll(l, t):
+        return _token_ll(l, t)
+
+    def split_ll(l, t):
+        return vocab.token_ll_split(l, t, n)
+
+    def loss_grad(ll):
+        l = logits.detach().float().requires_grad_()
+        loss = -ll(l, targets).mean()
+        loss.backward()
+        return loss.detach(), l.grad
+
+    want = loss_grad(plain_ll)
+    got = [loss_grad(split_ll) for _ in range(2)]
+    loss_rel = abs(got[0][0].item() - want[0].item()) / abs(want[0].item())
+    grad_rel = ((got[0][1] - want[1]).abs().max()
+                / want[1].abs().max()).item()
+    repeats_equal = all(torch.equal(a, b) for a, b in zip(*got))
+    ok = (lookup_equal and repeats_equal and loss_rel <= VOCAB_TOL
+          and grad_rel <= VOCAB_TOL and bool(torch.isfinite(got[0][1]).all()))
+    if not ok:
+        die("sharded", f"{arch} vocab shards: lookup bit-equal "
+                       f"{lookup_equal}, repeats {repeats_equal}, loss rel "
+                       f"{loss_rel}, logits grad rel {grad_rel} (bound "
+                       f"{VOCAB_TOL})")
+    del got, want
+    ms = {k: [] for k in ("plain_loss", "split_loss", "plain_lookup",
+                          "split_lookup")}
+    for _ in range(VOCAB_TURNS):
+        ms["plain_loss"].append(cuda_ms(lambda: loss_grad(plain_ll), 5, 2))
+        ms["split_loss"].append(cuda_ms(lambda: loss_grad(split_ll), 5, 2))
+        ms["plain_lookup"].append(cuda_ms(lambda: table[tokens], 20, 5))
+        ms["split_lookup"].append(cuda_ms(
+            lambda: vocab.embed_split(table, tokens, n), 20, 5))
+    return {"batch": B, "seq": S, "shards": n,
+            "vocab_padded": cfg.vocab_padded,
+            "logits_bytes": logits.numel() * 4,
+            "lookup_bit_equal": lookup_equal,
+            "repeats_bit_equal": repeats_equal, "loss_rel_err": loss_rel,
+            "logits_grad_rel_err": grad_rel, "tol": VOCAB_TOL,
+            "device_ms": {k: {"median": float(np.median(v)), "all": v}
+                          for k, v in ms.items()}}
+
+
 def _sharded_launcher(train_res):
     """qwen2-0.5b through launch.train.train(mesh_shape=(1, 1)): its
     launches, its losses against the train phase's plain launcher's (same
@@ -2639,8 +2726,9 @@ def _sharded_moe(mesh):
 
 def phase_sharded(train_res):
     """The sharded phase (see SHARDED_TRAIN): NCCL with one rank, a (1, 1)
-    mesh, qwen2-0.5b's train, prefill and decode, mamba2-130m's train, the
-    meshed launcher. The group is destroyed however the phase ends."""
+    mesh, qwen2-0.5b's train, prefill and decode and its vocab shards,
+    mamba2-130m's train, the meshed launcher. The group is destroyed
+    however the phase ends."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -2664,6 +2752,7 @@ def phase_sharded(train_res):
                  "train": _sharded_train(arch, mesh, params)}
             if arch == "qwen2-0.5b":
                 r["serve"] = _sharded_serve(arch, mesh, params)
+                r["vocab_shards"] = _vocab_shards(arch, params)
             del params
             torch.cuda.empty_cache()
             emit(r)

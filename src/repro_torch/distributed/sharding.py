@@ -32,6 +32,7 @@ import threading
 from typing import Optional
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 from torch.distributed.tensor.experimental import implicit_replication
@@ -246,6 +247,32 @@ def current_placements(shape, *axes) -> Optional[tuple]:
     if _CTX.mesh is None or _CTX.rules is None:
         return None
     return placements(_CTX.mesh, spec_for(_CTX.rules, axes, tuple(shape)))
+
+
+def shard_groups(placements, dim: int) -> list:
+    """(process group, this rank's index) of each mesh dim that shards
+    tensor dim ``dim`` of a tensor with ``placements``, in mesh order."""
+    mesh, _ = current_mesh_rules()
+    return [(mesh.get_group(i), mesh.get_local_rank(i))
+            for i, p in enumerate(placements) if p.is_shard(dim)]
+
+
+def shard_offset(groups, n_loc: int) -> int:
+    """The first index of this rank's shard of a dim split over ``groups``
+    (``shard_groups``) into shards of ``n_loc``: its index over the
+    groups, major to minor, times ``n_loc``."""
+    idx = 0
+    for group, index in groups:
+        idx = idx * group.size() + index
+    return idx * n_loc
+
+
+def all_reduce_over(x, op: str, groups):
+    """``x`` reduced by ``op`` over the process group of each (group,
+    index) of ``groups`` in turn (``shard_groups``)."""
+    for group, _ in groups:
+        x = funcol.wait_tensor(funcol.all_reduce(x, op, group))
+    return x
 
 
 def constrain(x, *axes):

@@ -23,6 +23,7 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.configs.shapes import (batch_logical_axes, decode_cache_len,
                                         inputs_for)
+from repro_torch.distributed import vocab
 from repro_torch.distributed.sharding import (axis_sizes, backward_under_rules,
                                               current_mesh_rules,
                                               current_placements, distribute,
@@ -43,12 +44,15 @@ def _token_ll(logits, targets):
 
 
 def cross_entropy(cfg: ModelConfig, logits, targets):
-    """Mean next-token loss, the log-softmax in f32. Under a mesh each rank
-    takes its own rows' terms with the vocab gathered (``local_map``):
-    DTensor's backward of ``gather`` would build a zeroed buffer of the
-    global (B, S, V) shape on every rank."""
+    """Mean next-token loss, the log-softmax in f32. Under a mesh whose
+    model axis splits the vocab, each rank keeps its vocab shard of the
+    logits and the ranks merge their rows' max, sum and target logit
+    (``distributed/vocab.py``); with the vocab whole on every rank, each
+    takes its own rows' terms (``local_map``)."""
     if not isinstance(logits, DTensor):
         return -_token_ll(logits, targets).mean()
+    if vocab.vocab_groups(logits, -1):
+        return -vocab.token_ll(logits, targets).mean()
     mesh, _ = current_mesh_rules()
     rows = current_placements(targets.shape, "batch", "seq")
     whole = current_placements(logits.shape, "batch", "seq", None)

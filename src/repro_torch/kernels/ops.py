@@ -41,7 +41,8 @@ from torch.distributed.tensor import DTensor, Partial
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.distributed.sharding import (current_mesh_rules,
-                                              current_placements)
+                                              current_placements,
+                                              shard_groups, shard_offset)
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ssd_scan as _ssd
@@ -65,14 +66,6 @@ def _kv_axes(q, k):
     the query's when they were expanded to one head per query head. The
     sequence is not sharded (a sharded one is gathered)."""
     return HEADS if k.shape[2] == q.shape[2] else KV
-
-
-def _seq_groups(placements):
-    """(process group, this rank's index) of each mesh dim that shards the
-    sequence dim (1) of a tensor with ``placements``, in mesh order."""
-    mesh, _ = current_mesh_rules()
-    return [(mesh.get_group(i), mesh.get_local_rank(i))
-            for i, p in enumerate(placements) if p.is_shard(1)]
 
 
 def _local(fn, out_placements, args, in_placements):
@@ -129,15 +122,6 @@ def merge_over(out, lse, groups):
     return out, lse.contiguous()
 
 
-def segment_offset(groups, s_loc: int) -> int:
-    """The first key position of this rank's segment: its index over the
-    groups, major to minor, times the segment length."""
-    idx = 0
-    for group, index in groups:
-        idx = idx * group.size() + index
-    return idx * s_loc
-
-
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     cap: float = 0.0):
     """q (B,Sq,H,D); k,v (B,Skv,K,D) with H = K*G -> (B,Sq,H,D). Under
@@ -163,7 +147,7 @@ def on_kv_segments(fn, q, k, v):
     qp = current_placements(q.shape, *HEADS)
     kvp = current_placements(k.shape, "batch", "kv_seg", "kv_heads",
                              "head_dim")
-    groups = _seq_groups(kvp)
+    groups = shard_groups(kvp, 1)
     return _local(lambda q, k, v: fn(q, k, v, groups), (qp,), (q, k, v),
                   (qp, kvp, kvp))
 
@@ -185,14 +169,14 @@ def flash_decode(q, k, v, kpos, cur_index, *, window: int = 0,
     qp = current_placements(q.shape, *HEADS)
     kvp = current_placements(k.shape, "batch", "seq_kv", "kv_heads",
                              "head_dim")
-    groups = _seq_groups(kvp)
+    groups = shard_groups(kvp, 1)
     if not groups:
         kvp = current_placements(k.shape, *_kv_axes(q, k))
         return _local(run, (qp,), (q, k, v), (qp, kvp, kvp))
 
     def split(q, k, v):
         n = k.shape[1]
-        a = segment_offset(groups, n)
+        a = shard_offset(groups, n)
         out, lse = _fd.flash_decode(q[:, 0], k, v, kpos[a:a + n], cur_index,
                                     return_lse=True, **kw)
         return merge_over(out, lse, groups)[0].to(q.dtype)[:, None]

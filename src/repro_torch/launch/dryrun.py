@@ -24,8 +24,12 @@ counterpart). What it records, per rank, as rank 0 sees it:
 * collectives: every functional collective the step issues, DTensor's
   and the model's own (``all_reduce``, ``all_gather_into_tensor``,
   ``reduce_scatter_tensor``, the expert-parallel MoE's differentiable
-  ``all_to_all_single``, the context attention's merge, ...) by kind, with
-  its input bytes;
+  ``all_to_all_single``, the context attention's merge, the vocab-parallel
+  sums, ...) by kind, with its input bytes and the bytes a rank sends over
+  the wire, by the reference's formulas from the group size (all-gather:
+  result - operand; reduce-scatter: operand - result; all-reduce:
+  2·result·(g-1)/g; all-to-all: result·(g-1)/g); and the (kind, shape)
+  groups with the most bytes;
 * memory: the local bytes of the arguments and outputs, and the peak: the
   arguments plus the most bytes the step's own local tensors held at once.
 
@@ -56,6 +60,7 @@ from repro_torch.distributed.steps import build_sharded_step
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.utils import tree_leaves, tree_leaves_like, tree_unflatten
 
+TOP = 12
 UNMEASURED = ("no compiled program: the eager step's bytes accessed, "
               "transcendentals, temporary buffers and HLO text are not "
               "counted")
@@ -74,11 +79,49 @@ def fake_group(world_size: int):
         dist.destroy_process_group()
 
 
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in pytree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _group_size(func, args, kwargs) -> int:
+    """The size of a functional collective's process group, from its
+    ``group_name`` argument."""
+    named = dict(zip((a.name for a in func._schema.arguments), args))
+    group = {**named, **kwargs}["group_name"]
+    if isinstance(group, str):
+        group = dist.distributed_c10d._resolve_process_group(group)
+    return group.size()
+
+
+# Bytes a rank sends over the wire, from the operand and result bytes and
+# the group size g: the reference's formulas (``repro.launch.dryrun``).
+_WIRE = {
+    "all_gather_into_tensor": lambda op, res, g: res - op,
+    "reduce_scatter_tensor": lambda op, res, g: op - res,
+    "all_reduce": lambda op, res, g: 2 * res * (g - 1) // g,
+    "all_to_all_single": lambda op, res, g: res * (g - 1) // g,
+}
+
+
+def _collective(func, kind, args, kwargs, x, out) -> dict:
+    """One functional collective's record: its kind, operand (shape,
+    dtype, bytes), group size, result and wire bytes."""
+    g = _group_size(func, args, kwargs)
+    op, res = x.numel() * x.element_size(), _nbytes(out)
+    return {"kind": kind, "shape": list(x.shape),
+            "dtype": str(x.dtype).removeprefix("torch."), "group": g,
+            "operand_bytes": op, "result_bytes": res,
+            "wire_bytes": _WIRE.get(kind, lambda op, res, g: res)(op, res, g)}
+
+
 class _Recorder(TorchDispatchMode):
     """Per-rank flops, collectives and memory of the local ops on one fake
-    mode's tensors. An op on DTensors is handed back to DTensor
-    (NotImplemented), whose local ops then come through here; nothing is
-    counted while ``paused`` (DTensor's propagation of global shapes). The
+    mode's tensors (with ``fake_mode`` None, on real tensors: the gloo
+    tests read a step's collectives so). An op on DTensors is handed back
+    to DTensor (NotImplemented), whose local ops then come through here;
+    nothing is counted while ``paused`` (DTensor's propagation of global
+    shapes). The
     peak is the most bytes the storages made by counted ops held at once,
     each freed when its storage dies (``MemTracker`` would count the
     global-shape tensors of the propagation too)."""
@@ -124,11 +167,10 @@ class _Recorder(TorchDispatchMode):
             name = packet.__name__
             if (func.namespace in ("_c10d_functional",
                                    "_c10d_functional_autograd")
-                    and name != "wait_tensor"):
-                x = ts[0]
-                self.collectives.append(
-                    {"kind": name,
-                     "operand_bytes": x.numel() * x.element_size()})
+                    and name != "wait_tensor"
+                    and not name.startswith("_")):   # _wrap_tensor_autograd
+                self.collectives.append(_collective(func, name, args, kwargs,
+                                                    ts[0], out))
             elif packet in flop_registry:
                 self.flops += int(flop_registry[packet](*args, **kwargs,
                                                         out_val=out))
@@ -212,12 +254,22 @@ def measure(step, cur_index: int = 0) -> dict:
     with _dtensor_internals_unrecorded(rec), fake_mode, rec:
         out = step.fn(*args)
     arg_bytes = _local_bytes(args)
-    by_kind = {}
+    by_kind, by_shape = {}, {}
     for op in rec.collectives:
-        e = by_kind.setdefault(op["kind"], {"count": 0, "operand_bytes": 0})
-        e["count"] += 1
-        e["operand_bytes"] += op["operand_bytes"]
+        e = by_kind.setdefault(op["kind"], {"count": 0, "operand_bytes": 0,
+                                            "wire_bytes": 0})
+        key = (op["kind"], tuple(op["shape"]), op["dtype"], op["group"])
+        f = by_shape.setdefault(key, {"kind": op["kind"],
+                                      "shape": op["shape"],
+                                      "dtype": op["dtype"],
+                                      "group": op["group"], "count": 0,
+                                      "operand_bytes": 0})
+        for agg in (e, f):
+            agg["count"] += 1
+            agg["operand_bytes"] += op["operand_bytes"]
+        e["wire_bytes"] += op["wire_bytes"]
     coll_bytes = sum(op["operand_bytes"] for op in rec.collectives)
+    wire_bytes = sum(op["wire_bytes"] for op in rec.collectives)
     return {
         "mode": step.rules.get("_mode"),
         # context mode's K/V (or cache) stay split over the sequence: each
@@ -238,9 +290,15 @@ def measure(step, cur_index: int = 0) -> dict:
                                "shards run them"},
         "looped": {"flops": rec.flops,
                    "coll_operand_bytes": coll_bytes,
+                   "coll_wire_bytes": wire_bytes,
                    "coll_count": len(rec.collectives)},
         "collectives": by_kind,
         "collective_operand_bytes": coll_bytes,
+        "collective_wire_bytes": wire_bytes,
+        # the collectives of one (kind, operand shape, dtype, group size)
+        # with the most operand bytes, largest first
+        "top_collectives": sorted(by_shape.values(),
+                                  key=lambda e: -e["operand_bytes"])[:TOP],
         "hlo_bytes": None,
         "unmeasured": UNMEASURED,
         "counts_from": "fake process group on the CPU, not a device",
@@ -282,6 +340,7 @@ def _run_and_write(arch, shape, meshk, out_dir, chunk):
         extra = (f" peak/dev={res['memory']['peak_per_device']/2**30:.2f}GiB"
                  f" flops={res['cost']['flops']:.3e}"
                  f" coll={res['collective_operand_bytes']/2**20:.1f}MiB"
+                 f" wire={res['collective_wire_bytes']/2**20:.1f}MiB"
                  f" run={res['run_s']}s")
     print(f"[dryrun] {tag}: {res['status']}{extra}", flush=True)
     return res["status"] != "error"

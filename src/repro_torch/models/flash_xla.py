@@ -30,9 +30,9 @@ tiles the keys itself and never takes expanded K/V in context mode.
 from __future__ import annotations
 
 import torch
-import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import all_reduce_over, shard_offset
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ops
 
@@ -57,7 +57,7 @@ def _forward(q, k, v, causal, window, cap, segments, groups):
         out, lse = ops.merge([o for o, _ in parts], [l for _, l in parts])
     else:
         out, lse = _fa._forward(q, k, v, causal, window, cap, True,
-                                k0=ops.segment_offset(groups, k.shape[1]))
+                                k0=shard_offset(groups, k.shape[1]))
         out, lse = ops.merge_over(out, lse, groups)
     return out.to(q.dtype), lse
 
@@ -84,10 +84,8 @@ class SegmentFlash(torch.autograd.Function):
         if groups is not None:
             dq, dk, dv = _fa.flash_attention_bwd(
                 q, k, v, out, lse, dout,
-                k0=ops.segment_offset(groups, k.shape[1]), **kw)
-            dq = dq.float()
-            for group, _ in groups:
-                dq = funcol.wait_tensor(funcol.all_reduce(dq, "sum", group))
+                k0=shard_offset(groups, k.shape[1]), **kw)
+            dq = all_reduce_over(dq.float(), "sum", groups)
             return dq.to(q.dtype), dk, dv, None, None, None, None, None
         s_loc = k.shape[1] // segments
         dq, dks, dvs = None, [], []

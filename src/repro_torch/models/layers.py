@@ -9,6 +9,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import vocab
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.params import ParamSpec
 
@@ -104,7 +105,12 @@ def embed_spec(cfg: ModelConfig):
 
 
 def embed(p, cfg: ModelConfig, tokens):
-    x = p["embedding"][tokens]
+    """Token embeddings. A table split over the vocab under a mesh is never
+    moved: each rank looks up the ids in its own rows and the ranks sum
+    (``distributed/vocab.py``)."""
+    table = p["embedding"]
+    x = (vocab.embed(table, tokens) if vocab.vocab_groups(table, 0)
+         else table[tokens])
     if cfg.scale_embed:
         # the scale is rounded to x's dtype first, as jnp.asarray(.., dtype)
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)

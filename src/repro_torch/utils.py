@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -61,12 +62,26 @@ def tree_bytes(tree: Any) -> int:
     return sum(t.nelement() * t.element_size() for t in tree_leaves(tree))
 
 
+def tree_params(tree: Any) -> int:
+    """Total elements of a tree of tensors, or of anything with a
+    ``shape`` (a ParamSpec tree)."""
+    return sum(math.prod(t.shape) for t in tree_leaves(tree))
+
+
 def human_bytes(n: float) -> str:
     for unit in ("B", "KB", "MB", "GB", "TB", "PB"):
         if abs(n) < 1024.0:
             return f"{n:.2f}{unit}"
         n /= 1024.0
     return f"{n:.2f}EB"
+
+
+def human_flops(n: float) -> str:
+    for unit in ("F", "KF", "MF", "GF", "TF", "PF"):
+        if abs(n) < 1000.0:
+            return f"{n:.2f}{unit}"
+        n /= 1000.0
+    return f"{n:.2f}EF"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,6 +9,14 @@ device, no allocation (DTensors whose local shards are fake tensors).
   reference's file name with every key the port measures, and ``null``
   for the ones it cannot.
 * The reference's skip record for a cell ``shape_applicable`` rules out.
+* Wire bytes by the reference's formulas (smoke gemma2 on the (2, 4)
+  mesh, a train and a decode cell): each collective's from its operand,
+  result and group size, the per-kind and total sums equal, and the
+  vocab-parallel layer in the records: no all_gather of the table's shard
+  (128 of 512 rows), no collective of a (B, S, V) or (B, S, V/4) operand
+  but decode's gather of the (B, 1, V/4) row ``greedy_sample`` samples,
+  the lookup's sum of (B/2, S, d) f32 rows over the 4 model ranks (a
+  microbatch's rows in the train cell).
 
 Each process group lives in a subprocess with a 240 s timeout.
 """
@@ -120,3 +128,60 @@ def test_dryrun_counts_expert_all_to_all_and_segmented_attention():
     assert dense["context_attention"] == "segmented"
     assert "all_to_all_single" not in dense["collectives"]
     assert dense["collectives"]["all_reduce"]["count"] > 0
+
+
+def test_dryrun_wire_bytes_and_vocab_parallel_small_mesh():
+    code = textwrap.dedent("""
+        import json
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.distributed.steps import build_sharded_step
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import make_mesh
+        recs, base = [], dryrun._Recorder
+
+        class Kept(base):           # every op's record, not only the top
+            def __init__(self, *args):
+                super().__init__(*args)
+                recs.append(self)
+        dryrun._Recorder = Kept
+        out = {}
+        cfg = get_smoke_config("gemma2-27b")
+        with dryrun.fake_group(8):
+            mesh = make_mesh((2, 4), ("data", "model"), device_type="cpu")
+            for shape in (ShapeSpec("t", "train", 64, 8),
+                          ShapeSpec("d", "decode", 64, 8)):
+                res = dryrun.measure(build_sharded_step(cfg, mesh, shape))
+                out[shape.kind] = (res, recs[-1].collectives)
+        print(json.dumps(out))
+    """)
+    res = json.loads(_python(["-c", code]).strip().splitlines()[-1])
+    v, d = 512, 64
+    for kind, (rec, ops) in res.items():
+        assert rec["collective_wire_bytes"] == sum(
+            c["wire_bytes"] for c in rec["collectives"].values()) == sum(
+            o["wire_bytes"] for o in ops) > 0
+        assert rec["looped"]["coll_wire_bytes"] == rec[
+            "collective_wire_bytes"]
+        assert rec["collective_operand_bytes"] == sum(
+            o["operand_bytes"] for o in ops)
+        assert len(rec["top_collectives"]) <= 12
+        for o in ops:
+            op, res_b, g = o["operand_bytes"], o["result_bytes"], o["group"]
+            assert g in (2, 4, 8), o
+            want = {"all_gather_into_tensor": res_b - op,
+                    "reduce_scatter_tensor": op - res_b,
+                    "all_reduce": 2 * res_b * (g - 1) // g,
+                    "all_to_all_single": res_b * (g - 1) // g}[o["kind"]]
+            assert o["wire_bytes"] == want, o
+            if o["kind"] == "all_gather_into_tensor":
+                assert res_b == op * g and o["shape"] != [v // 4, d], o
+            shape = o["shape"]
+            if len(shape) == 3 and shape[-1] in (v, v // 4):
+                # decode's greedy_sample gathers the one row it samples
+                assert kind == "decode" and shape == [4, 1, v // 4], o
+        # 8 rows over 2 data ranks; train in 4 microbatches of 64 tokens
+        b, s = (4, 1) if kind == "decode" else (1, 64)
+        assert {"kind": "all_reduce", "shape": [b, s, d], "dtype": "float32",
+                "group": 4} in [{k: o[k] for k in ("kind", "shape", "dtype",
+                                                    "group")} for o in ops]

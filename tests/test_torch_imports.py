@@ -80,6 +80,7 @@ SLICE_MODULES = [
     "repro_torch.launch.train", "repro_torch.configs.shapes",
     "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
     "repro_torch.launch.dryrun", "repro_torch.models.flash_xla",
+    "repro_torch.distributed.vocab",
 ]
 
 

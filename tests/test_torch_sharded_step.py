@@ -18,7 +18,11 @@ the meshed launcher on real collectives: ``gloo`` process groups on the CPU.
   another order and across ranks): loss within 2e-4 relative; grad_norm
   within 1e-4 relative; each leaf's gradient within 3e-4 of the leaf's
   largest element plus 1e-6 of the model's largest gradient element
-  (test_torch_train_dense.py's bound).
+  (test_torch_train_dense.py's bound). The vocab-parallel layer, from the
+  step's collectives (``launch/dryrun.py``'s recorder): no all_gather or
+  all_to_all of the table's vocab shard, no collective of a (B, S, V) or
+  (B, S, V/2) operand, and each microbatch's lookup one all_reduce over
+  the 2 model ranks of its (B_local, S, d) f32 rows.
 * 4 processes, (2, 2): a prefill of 32 tokens and 4 greedy decode steps
   of smoke qwen2 (batch 1: the decode rules give the whole mesh to the
   cache's sequence; prefill's attention the segment combine, K/V never
@@ -169,6 +173,26 @@ def _kv_layouts(kv):
         lm.attend_full, lm.attend_decode = saved
 
 
+@contextlib.contextmanager
+def _embed_spans(rec):
+    """While open, the span of ``rec.collectives`` (a dry-run recorder's
+    list) that each call of ``lm.embed`` issued, appended to the list it
+    yields."""
+    from repro_torch.models import lm
+    spans, embed = [], lm.embed
+
+    def recorded(*args):
+        a = len(rec.collectives)
+        out = embed(*args)
+        spans.append((a, len(rec.collectives)))
+        return out
+    lm.embed = recorded
+    try:
+        yield spans
+    finally:
+        lm.embed = embed
+
+
 def _ref_train_child(arch, tmp):
     """The JAX package's meshed train step ((2, 2) on 4 forced host
     devices) from its own init in f32 and _batch: the weights, the batch,
@@ -223,6 +247,7 @@ def _train_child(rank, arch, tmp):
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.distributed import steps
+    from repro_torch.launch.dryrun import _Recorder
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.params import from_numpy_tree
     from repro_torch.utils import tree_leaves, tree_map
@@ -244,8 +269,10 @@ def _train_child(rank, arch, tmp):
     opt = steps.get_optimizer(cfg.optimizer)
     state = opt.init(params)
     batch = _batch(cfg)
+    rec = _Recorder(None)
     with _kv_layouts((cfg.n_kv_heads, cfg.head_dim)) as kv, \
-            CommDebugMode() as comm, _drop_log() as drops:
+            CommDebugMode() as comm, _drop_log() as drops, \
+            _embed_spans(rec) as spans, rec:
         _, new_state, m = step.fn(params, state, batch, 0)
     dropped = torch.tensor([int(sum(drops))])
     dist.all_reduce(dropped)
@@ -253,7 +280,10 @@ def _train_child(rank, arch, tmp):
     res = {"mode": step.rules["_mode"], "loss": m["loss"].full_tensor(),
            "grad_norm": m["grad_norm"].full_tensor(), "grads": grads,
            "collectives": _collectives(comm), "dropped": int(dropped),
-           "kv_layouts": kv}
+           "kv_layouts": kv, "ops": rec.collectives,
+           "embed_ops": [rec.collectives[a:b] for a, b in spans],
+           "microbatches": steps.microbatches_for(cfg, 8, 2),
+           "dims": (cfg.vocab_padded, cfg.d_model)}
     if rank == 0 and ref is not None:
         res.update(plain_loss=torch.tensor(ref["loss"]),
                    plain_grad_norm=torch.tensor(ref["grad_norm"]),
@@ -408,6 +438,20 @@ def test_gloo_train_step_matches_single_device(tmp_path, arch, mode):
         arch == "qwen3-moe-235b-a22b")
     if arch == "qwen3-moe-235b-a22b":
         assert r["dropped"] > 0
+    # the vocab-parallel layer: the table (and an untied head) keeps its
+    # vocab shards and no (B, S, V) or (B, S, V/2) operand moves; each
+    # forward's lookup is one sum over the model axis of its rows in f32
+    v, d = r["dims"]
+    for op in r["ops"]:
+        shape = tuple(op["shape"])
+        if op["kind"] in ("all_gather_into_tensor", "all_to_all_single"):
+            assert shape not in ((v // 2, d), (d, v // 2)), op
+        assert not (len(shape) == 3 and shape[-1] in (v, v // 2)), op
+    assert len(r["embed_ops"]) == r["microbatches"]
+    for ops in r["embed_ops"]:
+        assert [(o["kind"], o["group"], o["dtype"], o["shape"])
+                for o in ops] == [("all_reduce", 2, "float32",
+                                   [8 // 2 // r["microbatches"], 32, d])]
     loss, want = r["loss"].item(), r["plain_loss"].item()
     assert abs(loss - want) <= 2e-4 * abs(want)
     gn, want_gn = r["grad_norm"].item(), r["plain_grad_norm"].item()
