@@ -190,25 +190,29 @@ class _Ctx(threading.local):
     def __init__(self):
         self.mesh = None
         self.rules: Optional[Rules] = None
+        self.cache_rules: Optional[Rules] = None
 
 
 _CTX = _Ctx()
 
 
 @contextlib.contextmanager
-def use_rules(mesh, rules: Optional[Rules]):
-    """Lay model code out on ``mesh`` by ``rules`` in this thread. Under a
-    mesh, a plain tensor that meets a DTensor (positions, masks, RoPE
-    frequencies) counts as replicated (DTensor's ``implicit_replication``,
-    entered by the outermost ``use_rules`` of the thread)."""
-    old = (_CTX.mesh, _CTX.rules)
-    _CTX.mesh, _CTX.rules = mesh, rules
+def use_rules(mesh, rules: Optional[Rules],
+              cache_rules: Optional[Rules] = None):
+    """Lay model code out on ``mesh`` by ``rules`` in this thread, and a
+    prefill's cache by ``cache_rules`` where given (``constrain_cache``).
+    Under a mesh, a plain tensor that meets a DTensor (positions, masks,
+    RoPE frequencies) counts as replicated (DTensor's
+    ``implicit_replication``, entered by the outermost ``use_rules`` of the
+    thread)."""
+    old = (_CTX.mesh, _CTX.rules, _CTX.cache_rules)
+    _CTX.mesh, _CTX.rules, _CTX.cache_rules = mesh, rules, cache_rules
     try:
         with (implicit_replication() if mesh is not None and old[0] is None
               else contextlib.nullcontext()):
             yield
     finally:
-        _CTX.mesh, _CTX.rules = old
+        _CTX.mesh, _CTX.rules, _CTX.cache_rules = old
 
 
 def current_mesh_rules():
@@ -275,14 +279,52 @@ def all_reduce_over(x, op: str, groups):
     return x
 
 
+class _ConstrainGrad(torch.autograd.Function):
+    """The identity, whose backward lays the cotangent out as ``placements``
+    (on ``mesh``): JAX transposes ``with_sharding_constraint`` to the same
+    constraint on the cotangent, and without it DTensor may carry a
+    gradient replicated where the forward kept it sharded, and then compute
+    the backward's products on the whole width on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, placements):
+        ctx.mesh, ctx.placements = mesh, placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g, None, None
+
+
 def constrain(x, *axes):
-    """Lay a DTensor out by logical axes (the reference's
-    with_sharding_constraint); a no-op outside use_rules and for a plain
-    tensor."""
+    """Lay a DTensor out by logical axes, and its gradient in the backward
+    (the reference's with_sharding_constraint); a no-op outside use_rules
+    and for a plain tensor."""
     if not isinstance(x, DTensor):
         return x
     pl = current_placements(x.shape, *axes)
-    return x if pl is None else x.redistribute(_CTX.mesh, pl)
+    if pl is None:
+        return x
+    if tuple(x.placements) != tuple(pl):
+        x = x.redistribute(_CTX.mesh, pl)
+    if x.requires_grad and torch.is_grad_enabled():
+        x = _ConstrainGrad.apply(x, _CTX.mesh, tuple(pl))
+    return x
+
+
+def constrain_cache(x, *axes):
+    """Lay a cache leaf that prefill makes out as decode reads it (the
+    ``cache_rules`` of ``use_rules``) as soon as it is made, so the step
+    holds each layer's shard, not the whole, as the reference's
+    ``out_shardings`` lay out its emitted cache; ``x`` as it is without
+    cache rules or outside a mesh."""
+    if _CTX.cache_rules is None or not isinstance(x, DTensor):
+        return x
+    pl = placements(_CTX.mesh, spec_for(_CTX.cache_rules, axes,
+                                        tuple(x.shape)))
+    return x if tuple(x.placements) == pl else x.redistribute(_CTX.mesh, pl)
 
 
 def shardings_for(tree, mesh, rules: Rules):

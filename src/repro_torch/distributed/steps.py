@@ -34,8 +34,7 @@ from repro_torch.models import params as pspec
 from repro_torch.models.lm import greedy_sample
 from repro_torch.models.registry import get_bundle
 from repro_torch.training.optimizer import clip_by_global_norm, get_optimizer
-from repro_torch.utils import (resolve_device, tree_leaves, tree_map,
-                               tree_unflatten)
+from repro_torch.utils import resolve_device, tree_leaves, tree_unflatten
 
 
 def _token_ll(logits, targets):
@@ -82,6 +81,29 @@ def _microbatch(v, i: int, n: int):
     return v[i * m:(i + 1) * m]
 
 
+def _zeros_as(g, dtype):
+    """Zeros of ``g``'s shape in ``dtype``, a DTensor laid out as ``g``
+    (``Partial`` too) where ``g`` is one."""
+    if not isinstance(g, DTensor):
+        return torch.zeros_like(g, dtype=dtype)
+    return DTensor.from_local(torch.zeros_like(g.to_local(), dtype=dtype),
+                              g.device_mesh, g.placements, run_check=False)
+
+
+def reduce_to_params(grads, params):
+    """Each gradient laid out as its parameter. Under a mesh, the gradient
+    of a weight that the data axes replicate comes out of the backward as a
+    ``Partial`` sum over them; it is reduced here once, in the parameter
+    dtype (one all-reduce a leaf; a ``Partial`` over a dim that splits the
+    parameter, as the experts' over the data axes, a reduce-scatter).
+    Plain tensors, and DTensors already laid out so, pass as they are."""
+    return tree_unflatten(params, [
+        g.redistribute(p.device_mesh, p.placements)
+        if isinstance(g, DTensor) and tuple(g.placements) != tuple(
+            p.placements) else g
+        for g, p in zip(tree_leaves(grads), tree_leaves(params))])
+
+
 def make_train_step(cfg: ModelConfig, opt, microbatches: Optional[int] = None,
                     device="cuda"):
     """train_step(params, opt_state, batch, step) -> (params, opt_state,
@@ -89,7 +111,10 @@ def make_train_step(cfg: ModelConfig, opt, microbatches: Optional[int] = None,
     ``microbatches`` (default ``cfg.microbatches``) as the reference's:
     loss and grads per microbatch, the grads summed in the parameter dtype
     and divided by n in f32, then ``clip_by_global_norm(grads, 1.0)`` and
-    ``opt.update``. The returned trees are new; the arguments are left as
+    ``opt.update``. Under a mesh, the microbatches' ``Partial`` gradients
+    are summed as they are and reduced once, before the division
+    (``reduce_to_params``), so the optimizer gets each gradient laid out as
+    its parameter. The returned trees are new; the arguments are left as
     they were. ``batch`` holds ``tokens`` and ``targets`` (B, S) and, by
     family, ``frames`` or ``image_embeds``; numpy arrays are taken."""
     bundle = get_bundle(cfg)
@@ -118,21 +143,31 @@ def make_train_step(cfg: ModelConfig, opt, microbatches: Optional[int] = None,
         b0 = next(iter(batch.values())).shape[0]
         if n <= 1 or b0 % n != 0:
             loss, grads = loss_and_grads(params, batch)
-            return finish(params, opt_state, loss, grads, step)
+            return finish(params, opt_state, loss,
+                          reduce_to_params(grads, params), step)
         # accumulate in the parameter dtype, as the reference does (an f32
-        # accumulator would double the parameter footprint)
-        gsum = tree_map(torch.zeros_like, params)
+        # accumulator would double the parameter footprint), from zeros laid
+        # out as the gradients come (a Partial sum adds to a Partial one
+        # with no collective)
+        gsum = None
         lsum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(n):
             mb = {k: _microbatch(v, i, n) for k, v in batch.items()}
             loss, grads = loss_and_grads(params, mb)
+            if gsum is None:
+                gsum = tree_unflatten(params, [
+                    _zeros_as(g, p.dtype) for g, p in zip(
+                        tree_leaves(grads), tree_leaves(params))])
             gsum = tree_unflatten(params, [
                 a + g.to(a.dtype) for a, g in zip(tree_leaves(gsum),
                                                   tree_leaves(grads))])
             lsum = lsum + loss
+            del grads       # not held through the next microbatch
         grads = tree_unflatten(params, [
-            (g.float() / n).to(p.dtype) for g, p in zip(tree_leaves(gsum),
-                                                       tree_leaves(params))])
+            (g.float() / n).to(p.dtype) for g, p in zip(
+                tree_leaves(reduce_to_params(gsum, params)),
+                tree_leaves(params))])
+        del gsum            # not held through the update
         return finish(params, opt_state, lsum / n, grads, step)
 
     return train_step
@@ -227,8 +262,8 @@ def build_sharded_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
                                    mesh, rules)
     rep = replicated(mesh)
 
-    def run(inner, *args):
-        with use_rules(mesh, rules):
+    def run(inner, *args, cache_rules=None):
+        with use_rules(mesh, rules, cache_rules):
             return inner(*args)
 
     if shape.kind == "train":
@@ -271,7 +306,7 @@ def build_sharded_step(cfg: ModelConfig, mesh, shape: ShapeSpec,
             params = distribute(params, param_sh, mesh)
             batch = distribute({k: batch[k] for k in batch_sh}, batch_sh,
                                mesh)
-            tok, cache = run(inner, params, batch)
+            tok, cache = run(inner, params, batch, cache_rules=dec_rules)
             tok_sh = shardings_from_axes(tok, ("batch", "seq"), mesh, rules)
             cache_sh = shardings_from_axes(cache, cache_axes, mesh,
                                            dec_rules)

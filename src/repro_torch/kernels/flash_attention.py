@@ -38,7 +38,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.kernels.flash_decode import _sm_count
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -197,18 +197,25 @@ def _strides(t):
             for i in range(3)]
 
 
+def _work(q, k, causal, window, k0, backward=False) -> int:
+    """The kernel's operations on these shapes (``kernels/work.py``)."""
+    B, Sq, H, D = q.shape
+    return work.attention_flops(
+        B, H, D, work.attention_pairs(Sq, k.shape[1], causal, window, k0),
+        backward)
+
+
 def _forward(q, k, v, causal: bool, window: int, cap: float,
              want_lse: bool, k0: int = 0):
     """(out, lse or None): the plain version on the CPU, the kernel on the
     card (lse written only when asked for: a null pointer otherwise); keys
     from position ``k0``."""
     if q.device.type == "cpu":
-        if want_lse:
-            return flash_attention_plain(q, k, v, causal=causal,
-                                         window=window, cap=cap,
-                                         return_lse=True, k0=k0)
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     cap=cap, k0=k0), None
+        out = work.plain("flash_attention",
+                         lambda: _work(q, k, causal, window, k0),
+                         flash_attention_plain, q, k, v, causal=causal,
+                         window=window, cap=cap, return_lse=want_lse, k0=k0)
+        return out if want_lse else (out, None)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     launch, max_d = _kernel()
@@ -365,9 +372,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     ``csrc/flash_attention_bwd.cu`` (statistics, dk/dv, dq: one call, one
     count in ``flash_attention_bwd.launches``) or raise."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
-                                         causal=causal, window=window,
-                                         cap=cap, k0=k0)
+        return work.plain("flash_attention_bwd",
+                          lambda: _work(q, k, causal, window, k0, True),
+                          flash_attention_bwd_plain, q, k, v, out, lse, dout,
+                          causal=causal, window=window, cap=cap, k0=k0)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")

@@ -118,7 +118,9 @@ def merge_over(out, lse, groups):
     for group, index in groups:
         lses = funcol.all_gather_tensor(lse.contiguous()[None], 0, group)
         w, lse = merge_weights(lses)
-        out = funcol.all_reduce(_rows(w[index], out) * out, "sum", group)
+        part = _rows(w[index], out) * out
+        del out                     # not held beside the sum
+        out = funcol.all_reduce(part, "sum", group)
     return out, lse.contiguous()
 
 

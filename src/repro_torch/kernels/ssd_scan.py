@@ -29,7 +29,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 from repro_torch.utils import cdiv
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -237,11 +237,18 @@ def check_layout(x, b, c):
                 f"elements")
 
 
+def _work(x, b, chunk, backward=False) -> int:
+    """The kernels' operations on these shapes (``kernels/work.py``)."""
+    B, L, H, P = x.shape
+    return work.ssd_flops(B, L, H, P, b.shape[-1], chunk, backward)
+
+
 def _forward(x, dt, a, b, c, chunk):
     """(y, state): the plain version on a CPU tensor, the kernel on a CUDA
     one (counted in ``ssd_scan.launches``); any other device raises."""
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, dt, a, b, c, chunk=chunk)
+        return work.plain("ssd_scan", lambda: _work(x, b, chunk),
+                          ssd_scan_plain, x, dt, a, b, c, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     launch, limits = _kernel()
@@ -306,7 +313,9 @@ def ssd_scan_bwd(x, dt, a, b, c, dy, dstate=None, *, chunk: int):
     :func:`copyable` refuses) is made contiguous first, and dstate always
     is."""
     if x.device.type == "cpu":
-        return ssd_scan_bwd_plain(x, dt, a, b, c, dy, dstate, chunk=chunk)
+        return work.plain("ssd_scan_bwd", lambda: _work(x, b, chunk, True),
+                          ssd_scan_bwd_plain, x, dt, a, b, c, dy, dstate,
+                          chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
     launch, scratch_floats, limits = _bwd_kernel()

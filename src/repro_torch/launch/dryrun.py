@@ -18,9 +18,9 @@ runs and there is no loop nest to correct (the reference's ``looped``
 totals equal the plain ones here, and the reference's HLO parser has no
 counterpart). What it records, per rank, as rank 0 sees it:
 
-* flops: each local op's count by ``torch.utils.flop_counter``'s formulas.
-  CPU shards run the kernels' plain versions, so these are the plain
-  versions' flops (attention's full masked scores, the plain SSD scan);
+* flops: each kernel's own work by its formula (``kernels/work.py``: CPU
+  shards run the kernels' plain versions, whose ops are not counted), and
+  every other local op's count by ``torch.utils.flop_counter``'s formulas;
 * collectives: every functional collective the step issues, DTensor's
   and the model's own (``all_reduce``, ``all_gather_into_tensor``,
   ``reduce_scatter_tensor``, the expert-parallel MoE's differentiable
@@ -57,10 +57,17 @@ from repro_torch.configs import ARCH_NAMES, SHAPES, get_config
 from repro_torch.configs.base import shape_applicable
 from repro_torch.configs.shapes import decode_cache_len
 from repro_torch.distributed.steps import build_sharded_step
+from repro_torch.kernels import work
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.utils import tree_leaves, tree_leaves_like, tree_unflatten
 
 TOP = 12
+TRACE_TOP = 40
+FLOPS_NOTE = ("the kernels' own work by their formulas (kernels/work.py: "
+              "4·D flops a live (q, k) pair and head forward, 10·D "
+              "backward; the SSD scan's least operations), every other op "
+              "by torch.utils.flop_counter's formulas; forward, remat's "
+              "recompute and backward, every layer")
 UNMEASURED = ("no compiled program: the eager step's bytes accessed, "
               "transcendentals, temporary buffers and HLO text are not "
               "counted")
@@ -104,6 +111,20 @@ _WIRE = {
 }
 
 
+def _frame():
+    """``file:line function`` of the innermost caller in the port's own
+    code (outside this module and ``kernels/work.py``), or None."""
+    f = sys._getframe(1)
+    while f is not None:
+        name = f.f_code.co_filename
+        if "repro_torch" in name and not name.endswith(("dryrun.py",
+                                                         "work.py")):
+            return (f"{name[name.rindex('repro_torch'):]}:{f.f_lineno} "
+                    f"{f.f_code.co_name}")
+        f = f.f_back
+    return None
+
+
 def _collective(func, kind, args, kwargs, x, out) -> dict:
     """One functional collective's record: its kind, operand (shape,
     dtype, bytes), group size, result and wire bytes."""
@@ -126,16 +147,59 @@ class _Recorder(TorchDispatchMode):
     each freed when its storage dies (``MemTracker`` would count the
     global-shape tensors of the propagation too)."""
 
-    def __init__(self, fake_mode):
+    TRACE_MIN = 2**20       # trace storages and collectives of 1 MiB up
+
+    def __init__(self, fake_mode, trace: bool = False):
         super().__init__()
         self.fake_mode = fake_mode
         self.paused = 0
         self.flops = 0
         self.collectives = []
         self.live, self.peak, self._sizes = 0, 0, {}
+        # with ``trace``: (bytes, shape, dtype, frame) of each live storage
+        # of TRACE_MIN bytes up, and those live at the last snapshot taken
+        # as the peak rose (by 0.25% or more since the one before)
+        self.trace, self._meta, self.at_peak, self._snap = trace, {}, [], 0
+        self.flops_by_site = {}     # with ``trace``: (op, frame) -> flops
+        self.in_kernel = 0          # inside a kernel's plain version
+
+    def __enter__(self):
+        self._counting = work.counting(self)
+        self._counting.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._counting.__exit__(*exc)
+        return super().__exit__(*exc)
+
+    def _add_flops(self, key, n):
+        self.flops += n
+        if self.trace:
+            self.flops_by_site[key] = self.flops_by_site.get(key, 0) + n
+
+    def kernel_outputs(self, out):
+        """A kernel's outputs, made inside its plain version."""
+        self._track(out)
+
+    def kernel(self, name, n):
+        """A kernel's operations by its formula (``kernels/work.py``)."""
+        self._add_flops((f"kernel:{name}", _frame() if self.trace else None),
+                        n)
+
+    def held(self, tree):
+        """Count the storages of ``tree`` (the step's arguments, counted
+        apart) as held already: an op whose output aliases one (a
+        parameter's ``detach``, a view, a cache written in place) adds
+        nothing to the peak."""
+        for t in pytree_leaves(tree):
+            if isinstance(t, DTensor):
+                t = t.to_local()
+            if isinstance(t, torch.Tensor):
+                self._sizes.setdefault(t.untyped_storage()._cdata, 0)
 
     def _free(self, key):
         self.live -= self._sizes.pop(key)
+        self._meta.pop(key, None)
 
     def _track(self, out):
         for t in pytree_leaves(out):
@@ -147,7 +211,15 @@ class _Recorder(TorchDispatchMode):
                 continue
             self._sizes[st._cdata] = st.nbytes()
             self.live += st.nbytes()
-            self.peak = max(self.peak, self.live)
+            if self.trace and st.nbytes() >= self.TRACE_MIN:
+                self._meta[st._cdata] = (st.nbytes(), list(t.shape),
+                                         str(t.dtype).removeprefix("torch."),
+                                         _frame())
+            if self.live > self.peak:
+                self.peak = self.live
+                if self.trace and self.live > 1.0025 * self._snap:
+                    self._snap, self.at_peak = self.live, list(
+                        self._meta.values())
             weakref.finalize(st, self._free, st._cdata)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -162,18 +234,21 @@ class _Recorder(TorchDispatchMode):
               if isinstance(t, torch.Tensor)]
         if ts and all(getattr(t, "fake_mode", None) is self.fake_mode
                       for t in ts):
-            self._track(out)
+            if not self.in_kernel:
+                self._track(out)
             packet = func._overloadpacket
             name = packet.__name__
             if (func.namespace in ("_c10d_functional",
                                    "_c10d_functional_autograd")
                     and name != "wait_tensor"
                     and not name.startswith("_")):   # _wrap_tensor_autograd
-                self.collectives.append(_collective(func, name, args, kwargs,
-                                                    ts[0], out))
-            elif packet in flop_registry:
-                self.flops += int(flop_registry[packet](*args, **kwargs,
-                                                        out_val=out))
+                op = _collective(func, name, args, kwargs, ts[0], out)
+                if self.trace and op["operand_bytes"] >= self.TRACE_MIN:
+                    op["frame"] = _frame()
+                self.collectives.append(op)
+            elif packet in flop_registry and not self.in_kernel:
+                n = int(flop_registry[packet](*args, **kwargs, out_val=out))
+                self._add_flops((name, _frame() if self.trace else None), n)
         return out
 
 
@@ -242,14 +317,48 @@ def _dtensor_internals_unrecorded(rec):
         ShardingPropagator._propagate_tensor_meta_non_cached = shapes
 
 
-def measure(step, cur_index: int = 0) -> dict:
-    """Run ``step.fn`` once on fake arguments; the per-rank counts."""
+def _traced(rec) -> dict:
+    """With ``trace``: the storages live at the peak and the large
+    collectives, each grouped by (shape, dtype, the port's frame that made
+    it), most bytes first; the flops by (op, frame), most first."""
+    live = {}
+    for nbytes, shape, dtype, frame in rec.at_peak:
+        e = live.setdefault((tuple(shape), dtype, frame),
+                            {"shape": shape, "dtype": dtype, "frame": frame,
+                             "count": 0, "bytes": 0})
+        e["count"] += 1
+        e["bytes"] += nbytes
+    colls = {}
+    for op in rec.collectives:
+        if "frame" not in op:
+            continue
+        e = colls.setdefault(
+            (op["kind"], tuple(op["shape"]), op["dtype"], op["group"],
+             op["frame"]),
+            {k: op[k] for k in ("kind", "shape", "dtype", "group", "frame")}
+            | {"count": 0, "operand_bytes": 0})
+        e["count"] += 1
+        e["operand_bytes"] += op["operand_bytes"]
+    sites = [{"op": op, "frame": frame, "flops": n}
+             for (op, frame), n in rec.flops_by_site.items()]
+    return {"at_peak_bytes": sum(e["bytes"] for e in live.values()),
+            "flops_by_site": sorted(sites, key=lambda e: -e["flops"]),
+            "live_at_peak": sorted(live.values(),
+                                   key=lambda e: -e["bytes"])[:TRACE_TOP],
+            "collective_frames": sorted(
+                colls.values(), key=lambda e: -e["operand_bytes"])[:TRACE_TOP]}
+
+
+def measure(step, cur_index: int = 0, trace: bool = False) -> dict:
+    """Run ``step.fn`` once on fake arguments; the per-rank counts (with
+    ``trace``, also ``_traced``'s lists under "trace")."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
     args = list(fake_arguments(step, fake_mode))
     if step.kind in ("train", "decode"):       # step / cur_index: an int
         args[-1] = cur_index
-    rec = _Recorder(fake_mode)
+    rec = _Recorder(fake_mode, trace)
+    rec.held(args)
     t0 = time.time()
     with _dtensor_internals_unrecorded(rec), fake_mode, rec:
         out = step.fn(*args)
@@ -286,8 +395,7 @@ def measure(step, cur_index: int = 0) -> dict:
         },
         "cost": {"flops": rec.flops, "bytes_accessed": None,
                  "transcendentals": None,
-                 "flops_note": "the kernels' plain versions' flops, as CPU "
-                               "shards run them"},
+                 "flops_note": FLOPS_NOTE},
         "looped": {"flops": rec.flops,
                    "coll_operand_bytes": coll_bytes,
                    "coll_wire_bytes": wire_bytes,
@@ -302,10 +410,12 @@ def measure(step, cur_index: int = 0) -> dict:
         "hlo_bytes": None,
         "unmeasured": UNMEASURED,
         "counts_from": "fake process group on the CPU, not a device",
+        **({"trace": _traced(rec)} if trace else {}),
     }
 
 
-def run_cell(arch: str, shape_name: str, mesh_kind: str, chunk: int = 1024):
+def run_cell(arch: str, shape_name: str, mesh_kind: str, chunk: int = 1024,
+             trace: bool = False):
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     if not shape_applicable(cfg, shape):
@@ -320,15 +430,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, chunk: int = 1024):
         step = build_sharded_step(cfg, mesh, shape, chunk=chunk)
         t_build = time.time() - t0
         # decode writes its token at the last slot of the shape's cache
-        res = measure(step, cur_index=decode_cache_len(cfg, shape)[0] - 1)
+        res = measure(step, cur_index=decode_cache_len(cfg, shape)[0] - 1,
+                      trace=trace)
     return {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
             "status": "ok", "build_s": round(t_build, 2), **res}
 
 
-def _run_and_write(arch, shape, meshk, out_dir, chunk):
+def _run_and_write(arch, shape, meshk, out_dir, chunk, trace=False):
     tag = f"{arch}__{shape}__{meshk}"
     try:
-        res = run_cell(arch, shape, meshk, chunk=chunk)
+        res = run_cell(arch, shape, meshk, chunk=chunk, trace=trace)
     except Exception as e:  # noqa: BLE001 - report, don't crash the sweep
         res = {"arch": arch, "shape": shape, "mesh": meshk,
                "status": "error", "error": f"{type(e).__name__}: {e}",
@@ -350,26 +461,31 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, choices=list(ARCH_NAMES))
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
-    ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--mesh", default=None, choices=["single", "multi"],
+                    help="default single; with --all, both unless given")
     ap.add_argument("--out", default="experiments/dryrun")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--chunk", type=int, default=1024)
+    ap.add_argument("--trace", action="store_true",
+                    help="also record the storages live at the peak and "
+                         "the frames of the large collectives")
     args = ap.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     if not args.all:
         if not (args.arch and args.shape):
             ap.error("--arch/--shape or --all")
-        ok = _run_and_write(args.arch, args.shape, args.mesh, args.out,
-                            args.chunk)
+        ok = _run_and_write(args.arch, args.shape, args.mesh or "single",
+                            args.out, args.chunk, args.trace)
         return 0 if ok else 1
     ok = True
     for a in ARCH_NAMES:        # one process per cell
         for s in SHAPES:
-            for m in ("single", "multi"):
+            for m in ((args.mesh,) if args.mesh else ("single", "multi")):
                 r = subprocess.run(
                     [sys.executable, "-m", "repro_torch.launch.dryrun",
                      "--arch", a, "--shape", s, "--mesh", m, "--out",
-                     args.out, "--chunk", str(args.chunk)])
+                     args.out, "--chunk", str(args.chunk)]
+                    + (["--trace"] if args.trace else []))
                 ok &= r.returncode == 0
     return 0 if ok else 1
 

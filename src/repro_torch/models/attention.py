@@ -19,10 +19,12 @@ merges each rank's cache shard the same way (``kernels.ops``).
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (axis_sizes, constrain,
+                                              constrain_cache,
                                               current_mesh_rules)
 from repro_torch.kernels import ops
 from repro_torch.models import flash_xla
@@ -46,12 +48,35 @@ def attn_spec(cfg: ModelConfig):
     return s
 
 
+def _project(eq: str, x, w):
+    """``torch.einsum(eq, x, w)``: activations (B, S, d) by a weight. Where
+    the mesh replicates the weight and splits x over its rows only (batch,
+    and the sequence in Megatron-SP), each rank multiplies its own rows
+    and the weight's gradient is Partial over those mesh dims, as XLA
+    partitions it: DTensor's einsum flattens a sequence-split x into a
+    strided shard that its view back cannot always take (smoke qwen3-moe's
+    K/V on a (2, 4) mesh)."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)
+            and all(pl.is_replicate() for pl in w.placements)
+            and all(pl.is_replicate() or (pl.is_shard() and pl.dim < 2)
+                    for pl in x.placements)
+            and any(pl.is_shard() for pl in x.placements)):
+        return torch.einsum(eq, x, w)
+    grad = tuple(Partial() if pl.is_shard() else Replicate()
+                 for pl in x.placements)
+    return local_map(lambda a, b: torch.einsum(eq, a, b),
+                     out_placements=list(x.placements),
+                     in_placements=(x.placements, w.placements),
+                     in_grad_placements=(x.placements, grad),
+                     device_mesh=x.device_mesh)(x, w)
+
+
 def _project_qkv(p, x, x_kv=None, positions=None, kv_positions=None,
                  theta: float = 10000.0, use_rope: bool = True):
     x_kv = x if x_kv is None else x_kv
-    q = torch.einsum("bsd,dhx->bshx", x, p["w_q"])
-    k = torch.einsum("bsd,dkx->bskx", x_kv, p["w_k"])
-    v = torch.einsum("bsd,dkx->bskx", x_kv, p["w_v"])
+    q = _project("bsd,dhx->bshx", x, p["w_q"])
+    k = _project("bsd,dkx->bskx", x_kv, p["w_k"])
+    v = _project("bsd,dkx->bskx", x_kv, p["w_v"])
     if "b_q" in p:
         q, k, v = q + p["b_q"], k + p["b_k"], v + p["b_v"]
     if use_rope:
@@ -142,7 +167,8 @@ def prefill_into_cache(cfg: ModelConfig, kind: str, k, v, max_len: int):
         # zeros after the prefilled slots (none when S == cap: a copy)
         return torch.cat([t, t.new_zeros((B, cap - S, K, D))], dim=1)
 
-    return {"k": pack(k), "v": pack(v)}
+    return {"k": constrain_cache(pack(k), *cache_axes()),
+            "v": constrain_cache(pack(v), *cache_axes())}
 
 
 def _write_slot(buf, slot: int, row):

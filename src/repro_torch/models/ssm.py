@@ -55,7 +55,7 @@ def causal_conv(x, kern):
     # placements for a one-dim mesh in torch 2.11)
     xp = torch.cat([x.new_zeros((x.shape[0], w - 1) + tuple(x.shape[2:])),
                     x], dim=1)
-    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    y = torch.zeros_like(x, dtype=torch.float32)    # a DTensor's: local
     for i in range(w):
         y = y + kern[i].float() * xp[:, i:i + L].float()
     return y.to(x.dtype)
@@ -83,7 +83,11 @@ def _branches(p, cfg: ModelConfig, x):
 def _finish(p, cfg: ModelConfig, y, z, xh):
     y = y + p["d_skip"][None, None, :, None] * xh.float()
     g = y * F.silu(z.float())
-    var = g.square().mean(dim=(-2, -1), keepdim=True)
+    # the mean over ssm_hd, summed over its shards, and its gradient
+    # replicated: else DTensor reduce-scatters that gradient over the
+    # sequence, and the gate's and z's gradients follow it there
+    var = constrain(g.square().mean(dim=(-2, -1), keepdim=True), "batch",
+                    "seq", None, None)
     g = g * torch.rsqrt(var + 1e-6) * (1.0 + p["norm"])
     g = constrain(g.to(xh.dtype), "batch", "seq", "ssm_heads", "ssm_hd")
     return torch.einsum("blhp,hpd->bld", g, p["w_out"])

@@ -22,7 +22,13 @@ the meshed launcher on real collectives: ``gloo`` process groups on the CPU.
   step's collectives (``launch/dryrun.py``'s recorder): no all_gather or
   all_to_all of the table's vocab shard, no collective of a (B, S, V) or
   (B, S, V/2) operand, and each microbatch's lookup one all_reduce over
-  the 2 model ranks of its (B_local, S, d) f32 rows.
+  the 2 model ranks of its (B_local, S, d) f32 rows. The optimizer
+  (Adafactor for gemma2 and qwen3-moe, AdamW for the others) gets every
+  gradient laid out as its parameter (``steps.reduce_to_params``: the
+  ``Partial`` sums reduced once); no all_gather or reduce_scatter has the
+  local shape of a stacked weight matrix but for its layers dim; each new
+  weight is held to the single-device step's (qwen3-moe: the reference's)
+  by test_torch_train_dense.py's bounds on an updated weight.
 * 4 processes, (2, 2): a prefill of 32 tokens and 4 greedy decode steps
   of smoke qwen2 (batch 1: the decode rules give the whole mesh to the
   cache's sequence; prefill's attention the segment combine, K/V never
@@ -53,6 +59,8 @@ from pathlib import Path
 
 import pytest
 import torch
+
+from test_torch_train_dense import assert_leaves_match, grad_bounds
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -230,14 +238,16 @@ def _ref_train_child(arch, tmp):
     batch = {k: v.numpy().astype(np.int32)
              for k, v in _batch(cfg).items()}
     opt = with_grads(cfg.optimizer)
-    _, state, m = step.jitted(params, opt.init(params),
-                              {k: jnp.asarray(v) for k, v in batch.items()},
-                              jnp.asarray(0, jnp.int32))
+    new, state, m = step.jitted(params, opt.init(params),
+                                {k: jnp.asarray(v) for k, v in batch.items()},
+                                jnp.asarray(0, jnp.int32))
     with open(f"{tmp}/ref.pkl", "wb") as f:
         pickle.dump({"params": host, "loss": float(m["loss"]),
                      "grad_norm": float(m["grad_norm"]),
                      "grads": [np.asarray(g) for g in
-                               jax.tree.leaves(state["grads"])]}, f)
+                               jax.tree.leaves(state["grads"])],
+                     "new_params": [np.asarray(w) for w in
+                                    jax.tree.leaves(new)]}, f)
 
 
 def _train_child(rank, arch, tmp):
@@ -250,10 +260,16 @@ def _train_child(rank, arch, tmp):
     from repro_torch.launch.dryrun import _Recorder
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.params import from_numpy_tree
-    from repro_torch.utils import tree_leaves, tree_map
+    from repro_torch.utils import tree_leaves, tree_leaves_like, tree_map
     _group(rank, 4, tmp)
     get = steps.get_optimizer
     steps.get_optimizer = lambda name, lr=1e-3: _with_grads(get(name, lr))
+    clip, at_finish = steps.clip_by_global_norm, []
+
+    def clip_recorded(grads, max_norm):     # finish's first call
+        at_finish.append([tuple(g.placements) for g in tree_leaves(grads)])
+        return clip(grads, max_norm)
+    steps.clip_by_global_norm = clip_recorded
     cfg = get_smoke_config(arch)
     mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
     step = steps.build_sharded_step(cfg, mesh, ShapeSpec("t", "train", 32, 8))
@@ -273,29 +289,50 @@ def _train_child(rank, arch, tmp):
     with _kv_layouts((cfg.n_kv_heads, cfg.head_dim)) as kv, \
             CommDebugMode() as comm, _drop_log() as drops, \
             _embed_spans(rec) as spans, rec:
-        _, new_state, m = step.fn(params, state, batch, 0)
+        new_params, new_state, m = step.fn(params, state, batch, 0)
     dropped = torch.tensor([int(sum(drops))])
     dist.all_reduce(dropped)
     grads = [g.full_tensor() for g in tree_leaves(new_state["grads"])]
+    # each parameter's placements, and the local shape of each stacked
+    # matrix (a leading "layers" dim) but for that dim (a stacked vector's
+    # would be an activation row's shape too)
+    placed = tree_leaves_like(step.in_shardings[0], params)
+    stacked = []
+    for p, pl, sp in zip(tree_leaves(params), placed,
+                         tree_leaves_like(bundle.spec(), params)):
+        if sp.axes[0] == "layers" and len(sp.axes) >= 3:
+            local = list(p.shape)
+            for i, x in enumerate(pl):
+                if x.is_shard():
+                    local[x.dim] //= mesh.size(i)
+            stacked.append(local[1:])
     res = {"mode": step.rules["_mode"], "loss": m["loss"].full_tensor(),
            "grad_norm": m["grad_norm"].full_tensor(), "grads": grads,
            "collectives": _collectives(comm), "dropped": int(dropped),
            "kv_layouts": kv, "ops": rec.collectives,
            "embed_ops": [rec.collectives[a:b] for a, b in spans],
            "microbatches": steps.microbatches_for(cfg, 8, 2),
-           "dims": (cfg.vocab_padded, cfg.d_model)}
+           "dims": (cfg.vocab_padded, cfg.d_model),
+           "at_finish": at_finish, "placements": [tuple(p) for p in placed],
+           "stacked": stacked, "optimizer": cfg.optimizer,
+           "old_params": [p.detach().clone() for p in tree_leaves(params)],
+           "new_params": [w.full_tensor() for w in tree_leaves(new_params)]}
     if rank == 0 and ref is not None:
         res.update(plain_loss=torch.tensor(ref["loss"]),
                    plain_grad_norm=torch.tensor(ref["grad_norm"]),
-                   plain_grads=[torch.from_numpy(g) for g in ref["grads"]])
+                   plain_grads=[torch.from_numpy(g) for g in ref["grads"]],
+                   plain_new_params=[torch.from_numpy(w)
+                                     for w in ref["new_params"]])
         torch.save(res, f"{tmp}/out.pt")
     elif rank == 0:
+        steps.clip_by_global_norm = clip
         plain = steps.make_train_step(
             cfg, opt, microbatches=steps.microbatches_for(cfg, 8, 2),
             device="cpu")
-        _, ps, pm = plain(params, state, batch, 0)
+        pp, ps, pm = plain(params, state, batch, 0)
         res.update(plain_loss=pm["loss"], plain_grad_norm=pm["grad_norm"],
-                   plain_grads=tree_leaves(ps["grads"]))
+                   plain_grads=tree_leaves(ps["grads"]),
+                   plain_new_params=tree_leaves(pp))
         torch.save(res, f"{tmp}/out.pt")
     dist.destroy_process_group()
 
@@ -463,6 +500,24 @@ def test_gloo_train_step_matches_single_device(tmp_path, arch, mode):
         assert g.shape == w.shape, i
         bound = 3e-4 * w.abs().max().item() + 1e-6 * top
         assert (g - w).abs().max().item() <= bound, i
+    # the optimizer (Adafactor for gemma2 and qwen3-moe) gets every
+    # gradient laid out as its parameter, reduced once; no collective
+    # scatters or gathers a stacked weight over its layers; its new weights
+    # are the single-device step's (qwen3-moe: the reference's meshed
+    # step's) within test_torch_train_dense.py's bounds
+    assert r["optimizer"] == ("adafactor" if arch in (
+        "gemma2-27b", "qwen3-moe-235b-a22b") else "adamw")
+    assert r["at_finish"] == [r["placements"]]
+    for op in r["ops"]:
+        if op["kind"] in ("all_gather_into_tensor", "reduce_scatter_tensor"):
+            assert op["shape"][1:] not in r["stacked"], op
+    ref_g = [g.numpy() for g in ref]
+    assert_leaves_match(
+        [w.numpy() for w in r["old_params"]],
+        [w.numpy() for w in r["new_params"]],
+        [w.numpy() for w in r["plain_new_params"]],
+        [g.numpy() for g in grads], ref_g, grad_bounds(ref_g), 1e-3,
+        update_rel=1e-3)
 
 
 @pytest.mark.parametrize("arch,modes,seq", [
