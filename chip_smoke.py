@@ -1492,7 +1492,9 @@ def _device_events(run, tries=3):
     most device kernels, and each session's count. The profiler now and
     then drops device records, from one to most of a session's, so one
     session can undercount; the run launches the same kernels every time,
-    and the session with the most is the complete one."""
+    and the session with the most is the complete one. The device copies of
+    ``record_function`` ranges (the engine's ``clockwork.*``) are not
+    kernels and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     best, sessions = None, []
@@ -1501,7 +1503,8 @@ def _device_events(run, tries=3):
                                  ProfilerActivity.CUDA]) as prof:
             out = run()
         dev = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
         sessions.append(sum(e.count for e in dev))
         if best is None or sessions[-1] > sessions[best[0]]:
             best = (len(sessions) - 1, dev, out)

@@ -1,0 +1,13 @@
+"""Milliseconds of making each INFER's input and waiting for its copy
+(``ActionRecord.input_s``, outside the duration the engine returns), summed
+over the window's successful INFER records, over the requests they carried
+(engine, serving/engine.py). None where no record holds the phase."""
+
+
+def read(rec):
+    done = [a for a in rec.actions if a.status == "SUCCESS"
+            and getattr(a, "input_s", None) is not None]
+    rows = sum(a.batch_size for a in done)
+    if not rows:
+        return None
+    return 1e3 * sum(a.input_s for a in done) / rows

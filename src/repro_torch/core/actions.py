@@ -67,6 +67,19 @@ class Action:
     received_at: float = 0.0         # stamped by the worker on receipt
 
 
+@dataclasses.dataclass(frozen=True)
+class Phases:
+    """Where one EXEC action's time went, as its backend measured it
+    (seconds). ``launch_s + wait_s`` is the duration the backend returned;
+    ``input_s`` (making the input and waiting for its copy) lies outside
+    it; ``device_s`` is the time between two device events around the
+    launches, None where the device has none (the CPU)."""
+    input_s: float
+    launch_s: float
+    wait_s: float
+    device_s: Optional[float] = None
+
+
 @dataclasses.dataclass
 class Result:
     action_id: int
@@ -77,7 +90,11 @@ class Result:
     status: ResultStatus
     t_start: float
     t_end: float
-    duration: float                  # on-device execution time
+    # what the backend returned: for a real backend, host time from the
+    # forward's call to the end of the synchronise (Phases.launch_s +
+    # wait_s), not device time
+    duration: float
     batch_size: int = 1
     request_ids: Tuple[int, ...] = ()
     t_received: float = 0.0          # worker-side receipt stamp (telemetry)
+    phases: Optional[Phases] = None  # the backend's breakdown, if measured

@@ -111,7 +111,6 @@ class Controller:
         # telemetry
         self.recorder = recorder if recorder is not None else Recorder()
         self.completed: List[Request] = []
-        self.results_log: List[Result] = []
         self.stats = {"goodput": 0, "timeout": 0, "rejected": 0,
                       "cold_starts": 0, "actions": 0, "dead_workers": 0}
 
@@ -393,7 +392,6 @@ class Controller:
                                   action.id, action.worker_id)
 
     def on_result(self, result: Result):
-        self.results_log.append(result)
         m = self.workers.get(result.worker_id)
         action = None
         if m is not None:
@@ -411,9 +409,9 @@ class Controller:
                 g.pending_exec.pop(result.action_id, None)
                 g.exec_free_at = max(g.pending_exec.values(),
                                      default=result.t_end)
-        # telemetry: predicted-vs-actual record + span phase stamps
-        predicted = action.expected_duration if action is not None else None
-        self.recorder.record_action(result, predicted)
+        # telemetry: predicted-vs-actual record with the action's dispatch
+        # stamps and the backend's phases, + span phase stamps
+        self.recorder.record_action(result, action)
         if result.status is ResultStatus.SUCCESS:
             if result.action_type in EXEC_TYPES:
                 self.recorder.span_exec(result.request_ids, result.t_start,

@@ -19,23 +19,16 @@ class ActionProfiler:
         self.safety = safety
         self._hist: Dict[Key, collections.deque] = {}
         self._seed: Dict[Key, float] = {}
-        # prediction-error telemetry for Fig 9
-        self.over_errors = []        # predicted - actual  (actual faster)
-        self.under_errors = []       # actual - predicted  (actual slower)
 
     def seed(self, action_type: str, model_id: str, batch: int,
              duration: float):
         self._seed[(action_type, model_id, batch)] = duration
 
     def observe(self, action_type: str, model_id: str, batch: int,
-                duration: float, *, record_error: bool = True):
+                duration: float):
+        """Add one measured duration. Prediction errors (Fig 9) are read
+        from the Recorder's ActionRecords (`prediction_error_report`)."""
         key = (action_type, model_id, batch)
-        if record_error:
-            pred = self.estimate(*key)
-            if pred is not None:
-                err = pred - duration
-                (self.over_errors if err >= 0 else
-                 self.under_errors).append(abs(err))
         dq = self._hist.setdefault(key,
                                    collections.deque(maxlen=self.window))
         dq.append(duration)

@@ -8,8 +8,10 @@ queue best-effort work, which is what stops stragglers from cascading.
 
 Backends supply durations:
   * SimBackend — profile tables + configurable noise/spikes (C3), virtual time
-  * callable backends (serving/engine.py) — actually execute JAX programs and
-    return measured wall time (RealClock)
+  * callable backends (serving/engine.py) — actually execute PyTorch programs
+    and return measured wall time (RealClock)
+Each backend's `take_phases(action_id)` hands over how the action it just
+ran spent that time (`Phases`), or None; the Result carries it.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ import itertools
 import random
 from typing import Callable, Dict, Optional, Tuple
 
-from repro_torch.core.actions import (EXEC_TYPES, Action, ActionType, Result,
-                                ResultStatus)
+from repro_torch.core.actions import (EXEC_TYPES, Action, ActionType, Phases,
+                                      Result, ResultStatus)
 from repro_torch.core.clock import EventLoop
 from repro_torch.core.pagecache import PAGE_BYTES, PageCache
 
@@ -84,6 +86,10 @@ class SimBackend:
             d = model.exec_latency[key]
         return self._jitter(d)
 
+    def take_phases(self, action_id: int) -> Optional[Phases]:
+        """A simulated duration has no measured phases."""
+        return None
+
 
 class Executor:
     """Serial action executor with [earliest, latest] window enforcement."""
@@ -129,14 +135,15 @@ class Executor:
                                 else duration)
             self.busy_until = end
             self.total_busy += duration
+            phases = self.worker.backend.take_phases(action.id)
 
-            def _done(a=action, t0=now, d=duration):
+            def _done(a=action, t0=now, d=duration, ph=phases):
                 self.busy = False
                 self.worker.finish(a)
                 self.worker.emit_result(a, ResultStatus.SUCCESS, t0,
                                         self.worker.loop.now()
                                         if self.worker.backend.realtime
-                                        else t0 + d, d)
+                                        else t0 + d, d, ph)
                 self._poll()
 
             loop.schedule(end, _done)
@@ -210,7 +217,8 @@ class Worker:
         pass  # hook (real backends release IO buffers here)
 
     def emit_result(self, action: Action, status: ResultStatus,
-                    t_start: float, t_end: float, duration: float):
+                    t_start: float, t_end: float, duration: float,
+                    phases: Optional[Phases] = None):
         if not self.alive or self.on_result is None:
             return
         r = Result(action_id=action.id, action_type=action.type,
@@ -219,7 +227,7 @@ class Worker:
                    t_end=t_end, duration=duration,
                    batch_size=action.batch_size,
                    request_ids=action.request_ids,
-                   t_received=action.received_at)
+                   t_received=action.received_at, phases=phases)
         self.loop.schedule_in(self.result_delay, lambda: self.on_result(r))
 
     # -------------------------------------------------- runtime descriptor

@@ -19,7 +19,9 @@ Kinds:
                clock and reports result stamps back on the controller's
                timeline — cross-boundary span stitching)
   serving      ACTION (controller -> worker), RESULT (worker ->
-               controller), SUBMIT / RESPONSE (remote request clients)
+               controller; an optional `phases` key carries the backend's
+               measured breakdown), SUBMIT / RESPONSE (remote request
+               clients)
   telemetry    TELEMETRY (worker -> controller: batched gauge samples,
                flushed periodically and on daemon shutdown)
 
@@ -30,12 +32,13 @@ spans) works unchanged across the boundary.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import struct
 from typing import Iterator, List, Optional
 
-from repro_torch.core.actions import Action, ActionType, Request, Result, \
-    ResultStatus
+from repro_torch.core.actions import Action, ActionType, Phases, Request, \
+    Result, ResultStatus
 from repro_torch.telemetry.events import GaugeSample
 
 PROTOCOL_VERSION = 1
@@ -156,13 +159,25 @@ def action_from_wire(d: dict) -> Action:
 
 
 def result_to_wire(r: Result) -> dict:
-    return {"action_id": r.action_id, "action_type": r.action_type.value,
-            "model_id": r.model_id, "worker_id": r.worker_id,
-            "gpu_id": r.gpu_id, "status": r.status.value,
-            "t_start": r.t_start, "t_end": r.t_end,
-            "duration": r.duration, "batch_size": r.batch_size,
-            "request_ids": list(r.request_ids),
-            "t_received": r.t_received}
+    d = {"action_id": r.action_id, "action_type": r.action_type.value,
+         "model_id": r.model_id, "worker_id": r.worker_id,
+         "gpu_id": r.gpu_id, "status": r.status.value,
+         "t_start": r.t_start, "t_end": r.t_end,
+         "duration": r.duration, "batch_size": r.batch_size,
+         "request_ids": list(r.request_ids),
+         "t_received": r.t_received}
+    if r.phases is not None:        # optional: absent where none measured
+        d["phases"] = dataclasses.asdict(r.phases)
+    return d
+
+
+def _phases_from_wire(x: Optional[dict]) -> Optional[Phases]:
+    if x is None:
+        return None
+    device_s = x.get("device_s")
+    return Phases(input_s=float(x["input_s"]), launch_s=float(x["launch_s"]),
+                  wait_s=float(x["wait_s"]),
+                  device_s=None if device_s is None else float(device_s))
 
 
 def result_from_wire(d: dict) -> Result:
@@ -175,7 +190,8 @@ def result_from_wire(d: dict) -> Result:
                   batch_size=int(d.get("batch_size", 1)),
                   request_ids=tuple(int(i)
                                     for i in d.get("request_ids", ())),
-                  t_received=float(d.get("t_received", 0.0)))
+                  t_received=float(d.get("t_received", 0.0)),
+                  phases=_phases_from_wire(d.get("phases")))
 
 
 def request_to_wire(r: Request) -> dict:

@@ -9,15 +9,30 @@ profiler and a ``ProfileStore`` in the reference's format.
 
 ``compile()`` runs one untimed pass per batch bucket, which builds the CUDA
 kernels; CUDA-graph capture of the buckets is a later step.
+
+Each INFER is timed in phases (``Phases``): the input (``make_input`` and
+the synchronise that waits for its copy, outside the returned duration),
+the launch (the forward's call, which enqueues its kernels), the wait (the
+synchronise after it) and, on a card, the device time between two CUDA
+events recorded around the launch. The returned duration is launch + wait.
+While a ``torch.profiler`` session records, and only then, the INFER and
+its phases are also ``record_function`` ranges on the profiler's clock:
+``clockwork.infer action=<id> model=<id> batch=<n> bucket=<n>`` (the name
+carries the arguments: the profiler keeps no ``record_function`` args) with
+``clockwork.infer.input``, ``.launch`` and ``.wait`` inside it, and, in an
+LM's forward, ``clockwork.decode.cache`` and ``clockwork.decode.step``.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from repro_torch.core.actions import Phases
 from repro_torch.core.worker import ModelDef
 from repro_torch.models import params as pspec
 from repro_torch.models.resnet import (port_layout, resnet50_forward,
@@ -26,9 +41,21 @@ from repro_torch.telemetry.profile_store import ProfileStore
 from repro_torch.utils import resolve_device, tree_map
 
 
+INFER_RANGE = "clockwork.infer"
+INPUT_RANGE, LAUNCH_RANGE, WAIT_RANGE = (
+    f"{INFER_RANGE}.{p}" for p in ("input", "launch", "wait"))
+_NO_RANGE = contextlib.nullcontext()
+
+
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _range(on: bool, name: str):
+    """A ``record_function`` range named ``name`` when ``on`` (a profiler
+    session records), else a shared no-op: nothing is built."""
+    return record_function(name) if on else _NO_RANGE
 
 
 class TorchModel:
@@ -52,6 +79,10 @@ class TorchModel:
         self._load_s: Optional[float] = None
         self._fresh: set = set()     # keys measured in-process (not echoes)
         self.warmup_count = 0        # timed profiling measurements performed
+        self.last_phases: Optional[Phases] = None   # of the last forward
+        self._events = ((torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+                        if self.device.type == "cuda" else None)
 
     def load(self) -> float:
         """Copy the host weights to the device; returns the seconds taken."""
@@ -70,19 +101,45 @@ class TorchModel:
                 return b
         return self.batches[-1]
 
-    def _forward(self, b: int):
-        x = self.make_input(b)
-        _sync(self.device)
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            out = self.forward(self.device_params, x)
-        _sync(self.device)
-        return out, time.perf_counter() - t0
+    def _forward(self, b: int, batch: Optional[int] = None,
+                 action_id: Optional[int] = None):
+        """One pass at bucket ``b`` carrying ``batch`` requests (default
+        ``b``) for action ``action_id``: returns (output, launch + wait
+        seconds) and leaves the phases in ``last_phases``."""
+        on = torch.autograd._profiler_enabled()
+        infer = (record_function(
+            f"{INFER_RANGE} action={action_id} model={self.model_id} "
+            f"batch={b if batch is None else batch} bucket={b}")
+            if on else _NO_RANGE)
+        ev = self._events
+        with infer:
+            t0 = time.perf_counter()
+            with _range(on, INPUT_RANGE):
+                x = self.make_input(b)
+                _sync(self.device)
+            t1 = time.perf_counter()
+            with _range(on, LAUNCH_RANGE):
+                if ev is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    ev[0].record(stream)
+                with torch.inference_mode():
+                    out = self.forward(self.device_params, x)
+                if ev is not None:
+                    ev[1].record(stream)
+            t2 = time.perf_counter()
+            with _range(on, WAIT_RANGE):
+                _sync(self.device)
+            t3 = time.perf_counter()
+        launch_s, wait_s = t2 - t1, t3 - t2
+        self.last_phases = Phases(
+            input_s=t1 - t0, launch_s=launch_s, wait_s=wait_s,
+            device_s=None if ev is None else ev[0].elapsed_time(ev[1]) / 1e3)
+        return out, launch_s + wait_s
 
-    def run(self, batch: int) -> float:
+    def run(self, batch: int, action_id: Optional[int] = None) -> float:
         if self.device_params is None:
             self.load()
-        return self._forward(self.bucket(batch))[1]
+        return self._forward(self.bucket(batch), batch, action_id)[1]
 
     def compile(self):
         """One untimed pass per batch bucket (builds the kernels) — not a
@@ -183,12 +240,26 @@ class TorchBackend:
 
     def __init__(self, models: Dict[str, TorchModel]):
         self.models = models
+        # (action id, Phases) of the INFER run last, until taken
+        self._phases: Tuple[Optional[int], Optional[Phases]] = (None, None)
 
     def load_duration(self, model: ModelDef) -> float:
         return max(self.models[model.model_id].load(), 1e-6)
 
     def exec_duration(self, model: ModelDef, action) -> float:
-        return max(self.models[model.model_id].run(action.batch_size), 1e-6)
+        tm = self.models[model.model_id]
+        d = tm.run(action.batch_size, action.id)
+        self._phases = (action.id, tm.last_phases)
+        return max(d, 1e-6)
+
+    def take_phases(self, action_id: int) -> Optional[Phases]:
+        """The phases of ``action_id`` if it is the INFER run last, once;
+        else None (a LOAD, or already taken)."""
+        aid, phases = self._phases
+        if aid != action_id:
+            return None
+        self._phases = (None, None)
+        return phases
 
 
 def seed_engines(engines: Dict[str, TorchModel],
@@ -263,8 +334,11 @@ def make_lm_decode_model(model_id: str, arch: str = "qwen2-0.5b",
         # one decode step against a zeroed ctx-sized cache, made inside the
         # timed call as in the reference (the contents don't affect the cost)
         tokens, cur = x
-        cache = bundle.init_cache(tokens.shape[0], ctx, device=dev)
-        logits, _ = bundle.decode(p, cache, tokens, cur)
+        on = torch.autograd._profiler_enabled()
+        with _range(on, "clockwork.decode.cache"):
+            cache = bundle.init_cache(tokens.shape[0], ctx, device=dev)
+        with _range(on, "clockwork.decode.step"):
+            logits, _ = bundle.decode(p, cache, tokens, cur)
         return logits
 
     def make_input(b):

@@ -9,7 +9,10 @@ Two record types cover everything the paper's figures need:
 * ActionRecord — one controller<->worker action round-trip with the
   *predicted* duration (the estimate the scheduler committed to) next to
   the *actual* measured duration. Fig 9's over/under prediction-error CDFs
-  are computed from these.
+  are computed from these. It also holds the controller's dispatch stamps
+  (`issued`, the action's `[earliest, latest]` window) and, for an EXEC
+  action on a real backend, the phases the backend measured (`input_s`,
+  `launch_s`, `wait_s`, `device_s`); None where not measured.
 
 A third, lighter record type carries control-plane health samples:
 
@@ -116,9 +119,19 @@ class ActionRecord:
     t_received: float          # worker received the action
     t_start: float             # execution began
     t_end: float               # result emitted
-    actual: float              # measured on-device duration
+    actual: float              # the Result's duration (on a real
+                               # backend host time, launch_s + wait_s)
     predicted: Optional[float] = None   # scheduler's committed estimate
     request_ids: Tuple[int, ...] = ()
+    # the controller's Action, None where the result matched none
+    issued: Optional[float] = None      # the controller sent it
+    earliest: Optional[float] = None    # the window it could start in
+    latest: Optional[float] = None
+    # the backend's Phases (seconds), None where it measured none
+    input_s: Optional[float] = None     # make the input, wait for its copy
+    launch_s: Optional[float] = None    # enqueue the forward's kernels
+    wait_s: Optional[float] = None      # then wait for the device
+    device_s: Optional[float] = None    # device events around the launches
 
     @property
     def error(self) -> Optional[float]:

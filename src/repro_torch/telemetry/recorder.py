@@ -9,7 +9,9 @@ Event flow (see DESIGN.md §3):
 
     on_request ──► span_open
     send_action ─► span_dispatch          (EXEC actions carrying requests)
-    on_result ───► record_action          (every result => ActionRecord)
+    on_result ───► record_action          (every result => ActionRecord,
+               │                           with its action's dispatch
+               │                           stamps and the backend's phases)
                ├─► span_exec              (successful EXEC)
                └─► span_load              (successful LOAD => cold-start
                                            attribution to waiting spans)
@@ -123,8 +125,11 @@ class Recorder:
         return s
 
     # ----------------------------------------------------------- actions
-    def record_action(self, result, predicted: Optional[float]):
-        """Build an ActionRecord from a worker Result (duck-typed)."""
+    def record_action(self, result, action=None):
+        """Build an ActionRecord from a worker Result and the controller's
+        Action it answers (both duck-typed; ``action`` None where the
+        controller holds none): the prediction and dispatch stamps come
+        from the action, the measured phases from the result."""
         if len(self.actions) == self.capacity:
             self.dropped_actions += 1
         rec = ActionRecord(
@@ -136,8 +141,18 @@ class Recorder:
             status=getattr(result.status, "value", str(result.status)),
             t_received=getattr(result, "t_received", 0.0),
             t_start=result.t_start, t_end=result.t_end,
-            actual=result.duration, predicted=predicted,
-            request_ids=tuple(result.request_ids))
+            actual=result.duration, request_ids=tuple(result.request_ids))
+        if action is not None:
+            rec.predicted = action.expected_duration
+            rec.issued = action.issued_at
+            rec.earliest = action.earliest
+            rec.latest = action.latest
+        phases = getattr(result, "phases", None)
+        if phases is not None:
+            rec.input_s = phases.input_s
+            rec.launch_s = phases.launch_s
+            rec.wait_s = phases.wait_s
+            rec.device_s = phases.device_s
         self.actions.append(rec)
         if self._stream_f is not None:
             self._stream_write("action", rec.to_dict())

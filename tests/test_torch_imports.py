@@ -3,7 +3,11 @@
 of ``repro``; its copied control-plane modules stay equal to
 their originals up to the package prefix (in imports, in ``python -m``
 module paths and in quoted module names, so that no copy imports, spawns or
-names a module of ``repro``); its configs equal the reference's."""
+names a module of ``repro``); its configs equal the reference's. The
+control-plane files that carry the port's in-program timing (``Phases``
+on the ``Result``, the dispatch stamps and phases on the ``ActionRecord``)
+differ from the reference's; ``test_torch_tracing.py`` holds their
+decisions equal instead."""
 import dataclasses
 import importlib
 import os
@@ -18,13 +22,11 @@ ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 
 COPIED = [
-    "core/actions.py", "core/clock.py", "core/pagecache.py",
-    "core/predictor.py", "core/scheduler.py", "core/worker.py",
-    "core/controller.py", "telemetry/events.py", "telemetry/recorder.py",
+    "core/clock.py", "core/pagecache.py", "core/scheduler.py",
     "telemetry/reports.py", "telemetry/profile_store.py",
     "core/baselines.py", "core/scheduler_reference.py",
     "serving/workload.py", "serving/simulator.py",
-    "runtime/__init__.py", "runtime/protocol.py", "runtime/transport.py",
+    "runtime/__init__.py", "runtime/transport.py",
     "runtime/client.py", "runtime/controller.py", "runtime/worker.py",
     "runtime/harness.py", "runtime/loadgen.py",
     "data/pipeline.py",
